@@ -1,8 +1,8 @@
 """Example: 3-station FM broadcast receiver from a synthetic IQ capture.
 
 Synthesizes a wideband capture with three FM stations, runs the streaming
-FmChannelizer (fused Pallas chain on TPU, XLA elsewhere), and reports the
-recovered audio tones. Run from the repo root:
+FmChannelizer (the fused kernel on a GPU, the XLA chain elsewhere), and
+reports the recovered audio tones. Run from the repo root:
 
     python examples/fm_broadcast_rx.py
 """
@@ -16,7 +16,7 @@ if "--cpu" in sys.argv:  # force CPU before any backend init
     import jax as _jax
     _jax.config.update("jax_platforms", "cpu")
 
-import dataclasses
+import tempfile
 
 import numpy as np
 import jax
@@ -53,7 +53,7 @@ def main():
         sample_rate=fs, tuning_frequency=0.0,
         channel_frequencies=stations, frequency_deviation=deviation,
         decimation=8, low_pass_taps=lowpass(128, 0.05),
-        impl="auto",  # fused Pallas kernel on TPU, XLA chain elsewhere
+        impl="auto",  # fused kernel on a GPU, XLA chain elsewhere
     )
     step = jax.jit(model.step)
     state = model.init()
@@ -72,8 +72,9 @@ def main():
         print(f"station {c} @ {stations[c]/1e3:+.0f} kHz: "
               f"tone {peak:.1f} Hz (expected {want})")
 
-    save_state("/tmp/fm_rx_state.npz", state)
-    print("stream state checkpointed to /tmp/fm_rx_state.npz")
+    path = os.path.join(tempfile.gettempdir(), "fm_rx_state.npz")
+    save_state(path, state)
+    print(f"stream state checkpointed to {path}")
 
 
 if __name__ == "__main__":

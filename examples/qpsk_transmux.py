@@ -105,8 +105,8 @@ def main():
     print(f"  EVM mean {evms.mean():.3f} max {evms.max():.3f}")
     print(f"  SER mean {sers.mean():.2e} worst {sers.max():.2e} "
           f"({tot} symbols)")
-    # EVM ~0.24 is the critical cascade's structural full-rate ISI
-    # (BASELINE round-5 packing-bound analysis); QPSK's decision margin
+    # EVM ~0.24 is the critical cascade's structural full-rate ISI (the
+    # Nyquist packing bound of a critically sampled bank); QPSK's margin
     # (0.707 to the boundary) dwarfs it, hence SER 0 — denser
     # constellations need sub-rate symbols or OQAM phasing.
     ok = sers.max() < 1e-3 and evms.max() < 0.3

@@ -5,9 +5,8 @@ stream with the PFB SYNTHESIS bank (gsdr_tpu.ops.pfb.pfb_synthesize — the
 IDFT + polyphase interpolation combiner, a capability beyond the reference,
 which ships per-stream modulators but no channel combiner). The stream
 passes through an AWGN channel, and the receive side runs the streaming
-FmChannelizer whose impl='auto' routes through the round-4 PFB-fronted
-fused kernel on TPU (uniform grid, critical decimation, Q = 8 — the
-measured win region). Per-channel audio is verified two ways: the dominant
+FmChannelizer on the uniform grid (critical decimation, Q = 8): impl='auto'
+runs the dense front, impl='pfb' (--pfb) the polyphase front. Per-channel audio is verified two ways: the dominant
 tone lands at the transmitted message frequency, and the least-squares
 audio SNR against the known tone clears a bound.
 
@@ -76,7 +75,7 @@ def run_duplex(fs, k, m_frames, impl, snr_db=30.0, q_syn=8, q_rx=8,
     rf = ComplexArray(np.asarray(noisy.real, np.float32),
                       np.asarray(noisy.imag, np.float32))
 
-    # --- RX: uniform-grid FM channelizer (auto -> PFB front on TPU) -----
+    # --- RX: uniform-grid FM channelizer -------------------------------
     channels = tuple(
         c * fs / k if c < k / 2 else c * fs / k - fs for c in range(k))
     model = FmChannelizer(

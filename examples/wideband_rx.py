@@ -1,9 +1,9 @@
 """Example: 32-channel wideband uniform-grid FM receiver (PFB front).
 
 Synthesizes a capture with FM carriers on every channel of a uniform
-Fs/32 grid, runs the streaming FmChannelizer with the round-4 PFB front
-(impl='auto' picks it on TPU via the measured win rule: long prototype
-filter + near-critical decimation; impl='pfb' forces it), and verifies
+Fs/32 grid, runs the streaming FmChannelizer (impl='auto', or the PFB
+front with --pfb: the fold + DFT shares the long prototype filter across
+the grid), and verifies
 every channel's recovered audio tone. Run from the repo root:
 
     python examples/wideband_rx.py [--cpu]

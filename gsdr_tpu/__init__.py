@@ -1,4 +1,4 @@
-"""gsdr_tpu — a TPU-native software-defined-radio DSP framework.
+"""gsdr_tpu — a software-defined-radio DSP framework in JAX, for the GPU.
 
 A brand-new JAX/XLA/Pallas framework with the full capability surface of the
 CUDA library kernrj/gsdr (see SURVEY.md): arithmetic / conversion / trig
@@ -6,15 +6,15 @@ primitives, frequency shifting (mixing), FIR filtering with decimation, exact
 IIR filtering, AM envelope and quadrature-FM demodulation (standalone and as
 fused chains), and QPSK / 256-ary QPSK modems — plus layers the single-GPU
 reference never had: an explicit functional streaming-state layer, and a
-sharding layer that scales channels and time-blocks across TPU meshes with
-halo-exchange collectives.
+sharding layer that scales channels and time-blocks across device meshes
+with halo-exchange collectives.
 
 Conventions (replacing the reference's C ABI, include/gsdr/gsdr.h:19-30):
   * Ops are pure jittable functions operating on the LAST axis; any leading
     axes are batch/channel axes. This replaces the reference's 2x/4x/8x
     multi-stream pointer APIs (src/qpsk.cu:148-219) with a channel axis.
-  * Complex data is complex64 at the API boundary; Pallas kernels use split
-    re/im float32 internally.
+  * Complex data is complex64 at the API boundary; models, kernels and the
+    sharded layer use split re/im float32 (gsdr_tpu.carray).
   * Streaming state (filter tails, oscillator phase, IIR state) is an
     explicit functional carry — see gsdr_tpu.stream — replacing the
     reference's caller-managed overlap / firstSampleIndex contracts

@@ -1,15 +1,11 @@
 """Planar complex representation: split re/im float32 arrays.
 
-The TPU compute path in this framework represents complex signals as a
-``ComplexArray`` pytree of two float32 planes rather than complex64 arrays.
-This is TPU-native in two ways:
-
-* Mosaic/Pallas TPU kernels do not support complex dtypes — split re/im is
-  the layout every kernel would need internally anyway (SURVEY.md section 7,
-  hard part 5);
-* the deployment backend this framework targets rejects complex64 even in
-  jitted XLA programs and at transfer boundaries, so planar float32 is the
-  only representation that runs at all.
+The models, kernels and sharded layer represent complex signals as a
+``ComplexArray`` pytree of two float32 planes rather than complex64 arrays:
+Pallas kernels have no complex dtype, so split re/im is the layout every
+kernel needs internally anyway (SURVEY.md section 7, hard part 5). Whether
+complex64 would serve the XLA paths as well on the GPU is an open question
+(ROADMAP).
 
 The complex64-dtype API of each op still exists (convenient on CPU and for
 test goldens); ops dispatch on input type: complex64 in -> complex64 out,
@@ -60,8 +56,7 @@ class ComplexArray:
 
     # -- conversion --------------------------------------------------------
     def to_complex(self):
-        """Recombine into complex64 (CPU-backend convenience; the restricted
-        TPU backend cannot execute this)."""
+        """Recombine into complex64."""
         return jax.lax.complex(self.re, self.im)
 
     def to_numpy(self):

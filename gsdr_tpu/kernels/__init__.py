@@ -1,15 +1,11 @@
-"""Pallas TPU kernels for the roofline-bearing hot paths.
+"""Hand-written GPU kernels: Pallas lowered through Triton.
 
-XLA handles most of the op set well, but its conv emitter materializes
-im2col windows through HBM — for the channelizer's stride-D window matmul
-that is ~T/D x the input in extra traffic and dominates the runtime
-(measured: the conv runs at the speed of its window materialization, not
-the MXU). These kernels keep the window construction in VMEM.
+A kernel stays here only while it beats the XLA path it replaces, end to
+end, on the GPU (PERF.md). Off a GPU a kernel runs only in the Pallas
+interpreter, and only when the caller passes ``interpret=True``
+(gsdr_tpu.backend.use_kernel).
 """
 
-from gsdr_tpu.kernels.channelize_pallas import (
-    mix_fir_decimate_bank_pallas,
-    pallas_supported,
-)
+from gsdr_tpu.kernels.fm_chain_triton import fm_chain, fm_chain_supported
 
-__all__ = ["mix_fir_decimate_bank_pallas", "pallas_supported"]
+__all__ = ["fm_chain", "fm_chain_supported"]

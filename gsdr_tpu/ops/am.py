@@ -3,16 +3,9 @@
 Parity with gsdrAmDemod (/root/reference/src/am.cu:52-81, kernel :21-50,
 API include/gsdr/am.h:25-37). The reference fuses the whole chain in one
 CUDA kernel per output sample; here the jnp composition lets XLA fuse the
-elementwise stages into the conv, and gsdr_tpu.kernels.fused_mix_fir provides
-the hand-fused Pallas version for the roofline path.
+elementwise stages around the conv.
 """
 
-import numpy as np
-
-import jax.numpy as jnp
-
-from gsdr_tpu.backend import is_tpu_backend
-from gsdr_tpu.carray import ComplexArray, is_planar
 from gsdr_tpu.ops.fir import fir
 from gsdr_tpu.ops.mixer import freq_shift
 from gsdr_tpu.ops.quad_demod import quad_am_demod
@@ -27,7 +20,6 @@ def am_demod(
     decimation=1,
     first_sample_index=0,
     impl="auto",
-    precision="bf16x3",
 ):
     """Demodulate one AM channel out of a tuned complex RF stream.
 
@@ -45,35 +37,12 @@ def am_demod(
       (..., (N - T)//D + 1) float32 envelope samples: 2*clamp(|lpf|,0,1) - 1
       (src/am.cu:49).
 
-    impl='auto' (round 3): 1-D inputs on a TPU backend run the fused
-    single-kernel windows+dot+envelope (kernels/fm_chain_pallas
-    am_chain_pallas — the LO rotor cancels under magnitude, so phase
-    continuity costs nothing); impl='xla' keeps the composed chain,
-    impl='pallas' forces the kernel (interpret mode off-TPU).
+    impl: 'auto' / 'xla' — the composed XLA chain (no kernel serves AM).
     """
+    if impl not in ("auto", "xla"):
+        raise ValueError(f"am_demod: unknown impl {impl!r} "
+                         "(expected 'auto' or 'xla')")
     shift_hz = float(tuning_frequency) - float(channel_frequency)
-    taps_np = np.asarray(low_pass_taps, np.float64)
-    t = taps_np.shape[0]
-    d = int(decimation)
-    nd = x.ndim if is_planar(x) else jnp.ndim(x)
-    n = x.shape[-1] if is_planar(x) else jnp.shape(x)[-1]
-    m = (n - t) // d + 1
-    from gsdr_tpu.kernels.fm_chain_pallas import (
-        am_chain_pallas,
-        fused_chain_supported,
-    )
-
-    use_fused = (
-        impl in ("auto", "pallas")
-        and (impl == "pallas" or is_tpu_backend())
-        and nd == 1 and m >= 1
-        and fused_chain_supported(d, t, m, 1))
-    if use_fused:
-        from gsdr_tpu.ops.channelize import make_complex_tap_bank
-
-        bank = make_complex_tap_bank(taps_np, [shift_hz], rf_sample_rate)
-        xp = x if is_planar(x) else ComplexArray.from_complex(jnp.asarray(x))
-        return am_chain_pallas(xp, bank, d, precision=precision)[0]
     mixed = freq_shift(x, shift_hz, rf_sample_rate, first_sample_index)
     filtered = fir(mixed, low_pass_taps, decimation)
     return quad_am_demod(filtered)

@@ -5,7 +5,7 @@ Capability parity with the reference's arithmetic ops
 src/multiply.cu, src/magnitude.cu), rebuilt as polymorphic jnp ops: the
 reference's four dtype-combo variants per op (FF/CC/CF/FC) collapse into one
 function via JAX dtype promotion, and its one-thread-per-element CUDA grids
-become XLA VPU vectorization.
+become XLA elementwise fusions.
 
 Note: the reference guards elementwise kernels with ``x > numElements``
 (one-element overwrite bug, src/add_const.cu:23); value semantics here make

@@ -1,4 +1,4 @@
-"""Fused mix -> FIR -> decimate for a bank of channels as ONE MXU conv.
+"""Fused mix -> FIR -> decimate for a bank of channels as ONE conv.
 
 The reference's fused chain (/root/reference/src/adjustFrequency.cu:25-56
 inside k_Am/k_Fm) evaluates, per channel c and output j:
@@ -13,15 +13,15 @@ g_c[t] = h[t] * e^{j*2*pi*f_c*t/Fs} (host-precomputed in float64), so
     filt[c, j] = e^{j*phi_c(jD)} * sum_t x[jD + t] * g_c[t]
 
 — the whole C-channel mix+FIR+decimate collapses into one real convolution
-with input features (xr, xi) and 2C output features, which XLA lowers to an
-implicit-im2col MXU matmul with contraction size 2T (= 128 for 64 taps:
-exactly the MXU K dimension). The per-sample LO (C transcendental pairs per
-input sample in the naive path) shrinks to one phasor per *decimated* output
-via the exact digit-table phase (gsdr_tpu.utils.phase).
+with input features (xr, xi) and 2C output features (contraction size 2T).
+The per-sample LO (C transcendental pairs per input sample in the naive
+path) shrinks to one phasor per *decimated* output via the exact
+digit-table phase (gsdr_tpu.utils.phase), and the FM discriminator needs
+not even that: consecutive rotors differ by the constant lo(D)
+(fm_discriminate_bank).
 
 This replaces the reference's per-thread tap-loop-with-sincos hot loop
-(src/adjustFrequency.cu:36-55) with the TPU-native formulation; measured
-~40x faster than the naive mix->conv composition on v5e.
+(src/adjustFrequency.cu:36-55).
 """
 
 import numpy as np
@@ -60,9 +60,8 @@ def make_complex_tap_bank(taps, shifts_hz, sample_rate):
         kernel[2 * c, 1] = -g.imag
         kernel[2 * c + 1, 0] = g.imag
         kernel[2 * c + 1, 1] = g.real
-    # numpy (not jnp) on purpose: the bank is a host-side constant, and the
-    # Pallas path re-slices it host-side (bf16 hi/lo split) even when called
-    # under an active jit trace.
+    # numpy (not jnp) on purpose: the bank is a host-side constant even
+    # when built under an active jit trace.
     return kernel.astype(np.float32)
 
 
@@ -73,18 +72,12 @@ def mix_fir_decimate_bank(x, kernel, decimation, impl="auto"):
     un-rotated output: caller applies rotate_bank for true mixed semantics
     (the rotation commutes past the filter exactly).
 
-    impl: 'auto'/'xla' use the f32 conv (XLA fuses it with the surrounding
-    chain, which currently beats the standalone Pallas kernel end-to-end);
-    'pallas' forces the Pallas kernel (kernels/channelize_pallas.py) — it
-    avoids XLA's HBM im2col and runs the contraction as 3-pass bf16x3
-    (~1e-4 relative error; ~1.3x faster than the conv in isolation, kept
-    opt-in until it wins inside the full fused chain).
+    impl: 'auto' / 'xla' — the float32 conv (cuDNN on the GPU); no
+    hand-written kernel serves the bank alone.
     """
-    if impl == "pallas":
-        from gsdr_tpu.kernels.channelize_pallas import (
-            mix_fir_decimate_bank_pallas,
-        )
-        return mix_fir_decimate_bank_pallas(x, kernel, decimation)
+    if impl not in ("auto", "xla"):
+        raise ValueError(f"mix_fir_decimate_bank: unknown impl {impl!r} "
+                         "(expected 'auto' or 'xla')")
     lead = x.shape[:-1]
     n = x.shape[-1]
     lhs = jnp.stack([x.re, x.im], axis=-2).reshape((-1, 2, n))  # (B, 2, N)
@@ -100,6 +93,56 @@ def mix_fir_decimate_bank(x, kernel, decimation, impl="auto"):
     c = kernel.shape[0] // 2
     out = out.reshape(lead + (c, 2, m))
     return ComplexArray(out[..., 0, :], out[..., 1, :])
+
+
+def lo_phasor(table, idx):
+    """e^{2i pi frac(f_c * idx / Fs)} per channel for one (traced) int32
+    index: planar (C, 1), exact phase fractions from the digit table."""
+    frac = phase_fraction_from_table(
+        jnp.reshape(jnp.asarray(idx, jnp.int32), (1,)),
+        jnp.asarray(table, jnp.float32)[:, None, :])
+    return expj(_TWO_PI * frac)
+
+
+def discriminator_prev(carry, table, rot0, decimation):
+    """The discriminator's carried (rotated) sample, brought into the
+    un-rotated frame of a block whose window 0 starts at ``rot0``.
+
+    The rotor of output j times the conjugate rotor of output j-1 is the
+    constant lo(D) for every j, so an un-rotated bank output y satisfies
+    y_rot[j] conj(y_rot[j-1]) = y[j] conj(y[j-1]) lo(D). The carried
+    sample is rotated; this returns u with y[0] conj(u) lo(D) =
+    y_rot[0] conj(carry), i.e. u = carry conj(lo(rot0)) lo(D)."""
+    return (carry * lo_phasor(table, rot0).conj()
+            * lo_phasor(table, decimation))
+
+
+def discriminator_carry(y_last, table, rot0_next, decimation):
+    """The inverse of discriminator_prev: the last un-rotated output of a
+    block, rotated into the carried state, such that the next block (window
+    0 at ``rot0_next``) recovers it exactly. Equal to
+    y_last lo(rot0_next - D); written as the product
+    lo(rot0_next) conj(lo(D)) so that the two phasors cancel against
+    discriminator_prev's to float rounding, not to the digit table's."""
+    return (y_last * lo_phasor(table, rot0_next)
+            * lo_phasor(table, decimation).conj())
+
+
+def fm_discriminate_bank(y, prev, table, decimation, gain):
+    """FM discriminator over un-rotated bank outputs y (..., C, M):
+    gain * angle(y[j] conj(y[j-1]) lo(D)), with y[-1] = ``prev`` (C, 1)
+    from discriminator_prev. Equal to rotate_bank then quad_fm_demod, but
+    the per-output rotor never has to be evaluated, so its phase rounding
+    never enters the audio. A product that is exactly zero (the zero
+    carry of a cold start) demodulates to 0, not to the +-pi that signed
+    zeros would give atan2."""
+    step = lo_phasor(table, decimation)
+    prior = ComplexArray(
+        jnp.concatenate([prev.re, y.re[..., :-1]], axis=-1),
+        jnp.concatenate([prev.im, y.im[..., :-1]], axis=-1))
+    q = y * prior.conj() * step
+    return jnp.where((q.re == 0) & (q.im == 0), 0.0,
+                     gain * jnp.arctan2(q.im, q.re))
 
 
 def rotate_bank(y, table, n0, decimation):
@@ -123,7 +166,7 @@ def channelize(x, taps, shifts_hz, sample_rate, decimation=1,
     """One-call fused channelizer: planar x (N,) -> planar (C, (N-T)//D+1).
 
     Equivalent to freq_shift per channel followed by fir(…, decimation) but
-    in one MXU pass; shifts/sample_rate/decimation are static.
+    in one conv; shifts/sample_rate/decimation are static.
     """
     kernel = make_complex_tap_bank(taps, shifts_hz, sample_rate)
     table = jnp.asarray(phase_digit_table(shifts_hz, sample_rate))

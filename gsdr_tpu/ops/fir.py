@@ -10,9 +10,8 @@ reference documents taps as pre-reversed, making this a convolution with the
 designer's impulse response); the caller supplies (numOutputs-1)*D + T input
 samples and no normalization is applied. The four dtype combos collapse into
 one polymorphic function; the thread-per-output CUDA grid becomes
-lax.conv_general_dilated, which XLA tiles onto the MXU (the FLOP-bearing unit
-on TPU). Complex data runs as split re/im real convolutions — both for MXU
-efficiency and because the TPU path is planar throughout (gsdr_tpu.carray).
+lax.conv_general_dilated (cuDNN on the GPU). Complex data runs as split
+re/im real convolutions, the planar layout of gsdr_tpu.carray.
 """
 
 import jax.numpy as jnp

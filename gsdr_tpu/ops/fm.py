@@ -4,17 +4,11 @@ Parity with gsdrFmDemod (/root/reference/src/fm.cu:181-218, kernel :21-69,
 API include/gsdr/fm.h:42-55). The reference computes numOut+1 filtered
 samples and exchanges the +1 neighbor via a warp shuffle
 (src/fm.cu:58-64); with value semantics the discriminator simply consumes
-consecutive filtered samples — the TPU equivalent of the warp-overlap trick
-is a 1-sample halo, which the Pallas fused kernel and the sharded layer both
+consecutive filtered samples — the equivalent of the warp-overlap trick is
+a 1-sample halo, which the fused FM chain kernel and the sharded layer both
 honor.
 """
 
-import numpy as np
-
-import jax.numpy as jnp
-
-from gsdr_tpu.backend import is_tpu_backend
-from gsdr_tpu.carray import ComplexArray, is_planar
 from gsdr_tpu.ops.fir import fir
 from gsdr_tpu.ops.mixer import freq_shift
 from gsdr_tpu.ops.quad_demod import quad_fm_demod
@@ -37,7 +31,6 @@ def fm_demod(
     decimation=1,
     first_sample_index=0,
     impl="auto",
-    precision="bf16x3",
 ):
     """Demodulate one FM channel out of a tuned complex RF stream.
 
@@ -48,53 +41,14 @@ def fm_demod(
     input blocks per the stream layer (gsdr_tpu.stream), which replaces the
     reference's caller-managed numLowPassTaps overlap (include/gsdr/fm.h:26).
 
-    impl='auto' (round 3): 1-D inputs on a TPU backend run the fused
-    single-kernel chain (kernels/fm_chain_pallas with identity
-    de-emphasis) — same ~50x-over-XLA path the pipeline models use;
-    ``precision`` selects its contraction grade (the bf16x3 default sits
-    at ~4e-5 of the f32 XLA chain). impl='xla' keeps the exact composed
-    chain; impl='pallas' forces the kernel (interpret mode off-TPU).
+    impl: 'auto' / 'xla' — the composed XLA chain. The fused kernel
+    serves the multi-channel FmChannelizer, not this one-channel op.
     """
+    if impl not in ("auto", "xla"):
+        raise ValueError(f"fm_demod: unknown impl {impl!r} "
+                         "(expected 'auto' or 'xla')")
     shift_hz = float(tuning_frequency) - float(channel_frequency)
     gain = fm_demod_gain(rf_sample_rate, frequency_deviation)
-    taps_np = np.asarray(low_pass_taps, np.float64)
-    t = taps_np.shape[0]
-    d = int(decimation)
-    nd = x.ndim if is_planar(x) else jnp.ndim(x)
-    n = x.shape[-1] if is_planar(x) else jnp.shape(x)[-1]
-    m = (n - t) // d + 1
-    from gsdr_tpu.kernels.fm_chain_pallas import (
-        fm_chain_pallas,
-        fused_chain_supported,
-    )
-
-    use_fused = (
-        impl in ("auto", "pallas")
-        and (impl == "pallas" or is_tpu_backend())
-        and nd == 1 and m >= 2
-        and float(rf_sample_rate).is_integer()
-        and fused_chain_supported(d, t, m, 1))
-    if use_fused:
-        from gsdr_tpu.utils.phase import phase_digit_table
-        from gsdr_tpu.ops.channelize import make_complex_tap_bank
-
-        fs = int(round(rf_sample_rate))
-        bank = make_complex_tap_bank(taps_np, [shift_hz], rf_sample_rate)
-        table = phase_digit_table([shift_hz], rf_sample_rate)
-        xp = x if is_planar(x) else ComplexArray.from_complex(jnp.asarray(x))
-        if isinstance(first_sample_index, (int, np.integer)):
-            rot0 = jnp.asarray(int(first_sample_index) % fs, jnp.int32)
-        else:
-            rot0 = jnp.asarray(first_sample_index, jnp.int32) % fs
-        # identity de-emphasis (b=(1,0), a=(1,0)) reduces the kernel's
-        # stage 4 to a pass-through; output 0 consumed the zero carry,
-        # so outputs 1..M-1 are exactly the op's M-1 discriminator pairs
-        audio, _, _ = fm_chain_pallas(
-            xp, bank, table, rot0, d, gain, (1.0, 0.0), (1.0, 0.0),
-            ComplexArray.zeros((1, 1)), jnp.zeros((1, 1), jnp.float32),
-            shifts_hz=(shift_hz,), sample_rate=rf_sample_rate,
-            precision=precision)
-        return audio[0, 1:]
     mixed = freq_shift(x, shift_hz, rf_sample_rate, first_sample_index)
     filtered = fir(mixed, low_pass_taps, decimation)
     return quad_fm_demod(filtered, gain)

@@ -20,14 +20,15 @@ Transposed Direct Form II state z in R^m (m = order = coeff_count - 1):
 with M[i,0] = -a[i+1], M[i,i+1] = 1, and c[i] = b[i+1] - a[i+1] b0 — a
 *linear* recurrence, so it block-decomposes exactly:
 
-  1. zero-state pass: split x into B blocks of L; run the recurrence inside
-     every block simultaneously from z = 0 (one length-L scan over (B, m)
-     vectors — the VPU-parallel axis is B);
+  1. zero-state pass: split x into B blocks of L; every block's response
+     from z = 0 is one (B, L) x (L, L) matmul with the lower-triangular
+     impulse-response matrix, and its end state one (B, L) x (L, m) matmul
+     (no per-sample loop, which on a GPU would be L sequential launches);
   2. cross-block combine: true block-start states follow the affine
      recurrence Z[b+1] = M^L Z[b] + d[b]; composed with
      lax.associative_scan in log2(B) steps;
   3. correction: the initial-state contribution to in-block outputs is
-     Z_start @ K^T with K[t] = e0^T M^t — one (B, m) x (m, L) MXU matmul.
+     Z_start @ K^T with K[t] = e0^T M^t — one (B, m) x (m, L) matmul.
 
 The reference's `samplesPerThread` tuning knob (include/gsdr/iir.h:158)
 becomes ``block_len``. Numerical note: M^t decays for stable filters, so the
@@ -72,20 +73,45 @@ def _state_space(b, a):
     return M, c, b0
 
 
-def _powers(M, L):
-    """K (L, m) with K[t] = e0^T M^t, and M^L (m, m)."""
+def _powers(M, c, L):
+    """Tables for block length L: K (L, m) with K[t] = e0^T M^t, V (L, m)
+    with V[t] = M^t c, and M^L (m, m). Sequential products, the
+    well-conditioned order for high-order filters (repeated squaring of a
+    companion matrix is not)."""
     m = M.shape[0]
     e0 = jnp.zeros((m,), M.dtype).at[0].set(1)
 
     def step(carry, _):
-        row, P = carry
-        return (row @ M, P @ M), row
+        row, vec, P = carry
+        return (row @ M, M @ vec, P @ M), (row, vec)
 
-    (_, M_L), rows = lax.scan(step, (e0, jnp.eye(m, dtype=M.dtype)), None, length=L)
-    return rows, M_L
+    (_, _, M_L), (K, V) = lax.scan(
+        step, (e0, c, jnp.eye(m, dtype=M.dtype)), None, length=L)
+    return K, V, M_L
 
 
-def _iir_1d(b, a, x, zi, block_len):
+def _powers_host(b, a, L, rem):
+    """_powers in float64 on the host, plus M^rem, for concrete
+    coefficients: the device then runs no loop at all."""
+    b = np.asarray(b, np.float64)
+    a = np.asarray(a, np.float64)
+    b, a = b / a[0], a / a[0]
+    m = b.shape[0] - 1
+    M = np.eye(m, k=1)
+    M[:, 0] -= a[1:]
+    c = b[1:] - a[1:] * b[0]
+    K = np.zeros((L, m))
+    V = np.zeros((L, m))
+    row = np.eye(m)[0]
+    vec = c
+    for t in range(L):
+        K[t], V[t] = row, vec
+        row, vec = row @ M, M @ vec
+    return (K, V, np.linalg.matrix_power(M, L),
+            np.linalg.matrix_power(M, rem))
+
+
+def _iir_1d(b, a, x, zi, block_len, tables):
     dtype = x.dtype
     M, c, b0 = _state_space(b, a)
     m = M.shape[0]
@@ -94,30 +120,27 @@ def _iir_1d(b, a, x, zi, block_len):
     B = -(-n // L)
     pad = B * L - n
     xb = jnp.pad(x, (0, pad)).reshape(B, L)
-
-    # 1) zero-state pass over all blocks simultaneously. The last block holds
-    # only `rem` real samples (the rest is padding), so additionally capture
-    # its zero-state state after `rem` steps for the exact final state.
-    MT = M.T
     rem = n - (B - 1) * L  # real samples in the last block, in [1, L]
+    if tables is None:
+        K, V, M_L = _powers(M, c, L)
+        M_rem = jnp.linalg.matrix_power(M, rem)
+    else:
+        K, V, M_L, M_rem = (t.astype(dtype) for t in tables)
 
-    def zs_step(carry, inp):
-        z, z_rem = carry
-        x_t, t = inp
-        y_t = b0 * x_t + z[:, 0]
-        z_new = z @ MT + x_t[:, None] * c
-        z_rem = jnp.where(t == rem - 1, z_new[-1], z_rem)
-        return (z_new, z_rem), y_t
-
-    z0 = jnp.zeros((B, m), dtype)
-    (d, z_rem_last), y_zs = lax.scan(
-        zs_step, (z0, jnp.zeros((m,), dtype)), (xb.T, jnp.arange(L))
-    )
-    y_zs = y_zs.T  # (B, L)
+    # 1) zero-state pass over all blocks at once, as matmuls: the in-block
+    # response is the (L, L) lower-triangular Toeplitz matrix of the
+    # impulse response h[0] = b0, h[k] = K[k-1] . c, and the block-end
+    # state is sum_tau M^(L-1-tau) c x[tau]. The last block holds only
+    # `rem` real samples (the rest is padding), so its exact zero-state
+    # end state is taken after `rem` samples.
+    h = jnp.concatenate([b0[None], K[:L - 1] @ c])
+    lag = np.arange(L)[:, None] - np.arange(L)[None, :]
+    H = jnp.where(lag >= 0, h[np.maximum(lag, 0)], 0)
+    y_zs = xb @ H.T                                       # (B, L)
+    d = xb @ V[::-1]                                      # (B, m)
+    z_rem_last = xb[-1, :rem] @ V[rem - 1::-1]
 
     # 2) cross-block affine combine: Z[b+1] = M_L Z[b] + d[b].
-    K, M_L = _powers(M, L)
-
     def combine(left, right):
         # Affine map composition right(left(z)); operands carry a leading
         # scan axis inside associative_scan, so batch the matvec explicitly.
@@ -133,32 +156,11 @@ def _iir_1d(b, a, x, zi, block_len):
     z_start = jnp.concatenate([zi[None, :], z_starts_tail], axis=0)  # (B, m)
     # Exact final state: evolve the last block's true start state through its
     # `rem` real samples only (not the zero padding).
-    M_rem = jnp.linalg.matrix_power(M, rem)
     z_final = M_rem @ z_start[-1] + z_rem_last
 
-    # 3) initial-state correction: one MXU matmul.
+    # 3) initial-state correction: one matmul.
     y = y_zs + z_start @ K.T
     return y.reshape(-1)[:n], z_final
-
-
-def _pallas_dispatchable(b, a, x, impl):
-    """True when the pole-diagonalized Pallas kernel should take this call:
-    concrete coefficients, 1-D signal, TPU backend (or impl forced)."""
-    if impl == "xla":
-        return False
-    if isinstance(b, jax.core.Tracer) or isinstance(a, jax.core.Tracer):
-        return False
-    from gsdr_tpu.carray import is_planar
-
-    ndim = x.ndim if (is_planar(x) or hasattr(x, "ndim")) else \
-        np.asarray(x).ndim
-    if ndim != 1:
-        return False
-    if impl != "pallas" and jax.default_backend() == "cpu":
-        return False
-    from gsdr_tpu.kernels.iir_pallas import iir_pallas_supported
-
-    return iir_pallas_supported(np.asarray(b), np.asarray(a))
 
 
 def iir_block(b, a, x, zi=None, block_len=128, impl="auto"):
@@ -172,36 +174,39 @@ def iir_block(b, a, x, zi=None, block_len=128, impl="auto"):
     include/gsdr/iir.h:91-92) filters the two planes independently, which is
     exact by linearity.
 
-    ``impl``: 'auto' routes 1-D signals with concrete order-<=8 coefficients
-    through the pole-diagonalized Pallas kernel on TPU
-    (kernels/iir_pallas.py — removes the sequential-scan bottleneck);
-    'xla'/'pallas' force a path.
+    ``impl``: 'auto' / 'xla' — the blocked scan above; no hand-written
+    kernel serves the IIR.
     """
-    import numpy as _np
-
-    if _pallas_dispatchable(b, a, x, impl):
-        from gsdr_tpu.carray import ComplexArray, is_planar
-        from gsdr_tpu.kernels.iir_pallas import iir_pallas
-
-        bb, aa = _np.asarray(b, _np.float64), _np.asarray(a, _np.float64)
-        if is_planar(x):
-            yr, zr = iir_pallas(bb, aa, x.re, zi=None if zi is None else zi.re)
-            yi, zim = iir_pallas(bb, aa, x.im,
-                                 zi=None if zi is None else zi.im)
-            return ComplexArray(yr, yi), ComplexArray(zr, zim)
-        return iir_pallas(bb, aa, x, zi=zi)
-    return _iir_block_xla(b, a, x, zi=zi, block_len=block_len)
+    if impl not in ("auto", "xla"):
+        raise ValueError(f"iir_block: unknown impl {impl!r} "
+                         "(expected 'auto' or 'xla')")
+    tables, ok = None, False
+    try:
+        b_np, a_np = np.asarray(b), np.asarray(a)
+    except jax.errors.TracerArrayConversionError:
+        pass  # traced coefficients: the tables are built on the device
+    else:
+        ok = (b_np.ndim == a_np.ndim == 1 and b_np.shape == a_np.shape
+              and _MIN_COEFFS <= b_np.shape[0] <= _MAX_COEFFS)
+    if ok:
+        n = (x.shape if hasattr(x, "shape") else np.shape(x))[-1]
+        L = min(block_len, max(n, 1))
+        tables = tuple(jnp.asarray(t, jnp.float32) for t in _powers_host(
+            b_np, a_np, L, n - (-(-n // L) - 1) * L))
+    return _iir_block_xla(b, a, x, zi=zi, block_len=block_len,
+                          tables=tables)
 
 
 @functools.partial(jax.jit, static_argnames=("block_len",))
-def _iir_block_xla(b, a, x, zi=None, block_len=128):
+def _iir_block_xla(b, a, x, zi=None, block_len=128, tables=None):
     """Exact blocked-parallel-scan path (module docstring algorithm)."""
     from gsdr_tpu.carray import ComplexArray, is_planar
 
     if is_planar(x):
         xs = jnp.stack([x.re, x.im], axis=0)
         zis = None if zi is None else jnp.stack([zi.re, zi.im], axis=0)
-        y, zf = _iir_block_xla(b, a, xs, zi=zis, block_len=block_len)
+        y, zf = _iir_block_xla(b, a, xs, zi=zis, block_len=block_len,
+                               tables=tables)
         return ComplexArray(y[0], y[1]), ComplexArray(zf[0], zf[1])
 
     x = jnp.asarray(x)
@@ -216,12 +221,12 @@ def _iir_block_xla(b, a, x, zi=None, block_len=128):
         zi_b = jnp.zeros((xb.shape[0], b.shape[0] - 1), dtype)
     else:
         zi_b = jnp.asarray(zi, dtype).reshape((-1, b.shape[0] - 1))
-    # f32 matmul precision: TPU matmuls default to bf16, which silently
-    # breaks the exactness contract of the blocked scan (state-transition
-    # compositions are tiny m x m matrices — HIGHEST costs nothing here)
+    # f32 matmul precision: a GPU matmul may otherwise run in TF32 (~1e-3),
+    # which silently breaks the exactness contract of the blocked scan
     with jax.default_matmul_precision("float32"):
         y, zf = jax.vmap(
-            lambda xi, zii: _iir_1d(b, a, xi, zii, block_len))(xb, zi_b)
+            lambda xi, zii: _iir_1d(b, a, xi, zii, block_len, tables))(
+                xb, zi_b)
     return (
         y.reshape(batch_shape + (x.shape[-1],)),
         zf.reshape(batch_shape + (b.shape[0] - 1,)),

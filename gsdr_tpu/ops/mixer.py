@@ -18,7 +18,7 @@ offset n0 — the reference's firstSampleIndex contract
 (src/adjustFrequency.cuh:25) — and needs no communication or carried state.
 
 All functions dispatch on representation: ComplexArray in -> ComplexArray
-out (the TPU path), complex64 in -> complex64 out (CPU convenience).
+out (the planar path), complex64 in -> complex64 out (CPU convenience).
 """
 
 import jax.numpy as jnp

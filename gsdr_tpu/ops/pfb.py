@@ -13,13 +13,12 @@ output frame:
 
 (the rotor e^{-2i pi c jK / K} = 1 at critical decimation — uniform grids
 need no LO at all). The fold u is K parallel stride-1 FIRs of length Q
-(grouped conv, MXU/VPU friendly); the DFT is a dense (K x K) matmul — we
-deliberately use the matmul form, not jnp.fft: for K <= 256 it IS the
-fastest TPU form and it avoids backend FFT support questions.
+(grouped conv); the DFT is a dense (K x K) matmul, not jnp.fft. Whether
+cuFFT beats the matmul past some K is not measured yet (ROADMAP).
 
 The reference library has no channelizer at all (its dead k_Fm4x kernel,
 /root/reference/src/fm.cu:71-179, hand-unrolls 4 channels); this op is a
-capability the TPU build adds beyond parity.
+capability added beyond parity.
 """
 
 import numpy as np
@@ -28,7 +27,6 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
-from gsdr_tpu.backend import is_tpu_backend
 from gsdr_tpu.carray import ComplexArray, is_planar
 
 
@@ -57,6 +55,20 @@ def uniform_grid(shifts_hz, sample_rate, max_k=4096, multiple_of=1):
     return k, bins
 
 
+def decimating_grid(shifts_hz, sample_rate, decimation):
+    """(k, bins) of the uniform grid with D | k that the PFB front needs,
+    or ValueError naming why there is none. uniform_grid(multiple_of=D)
+    lifts k to an lcm with D or returns None, so D | k holds whenever a
+    grid exists."""
+    grid = uniform_grid(shifts_hz, sample_rate, multiple_of=decimation)
+    if grid is None:
+        raise ValueError(
+            "impl='pfb' needs every channel shift on an Fs/K grid with "
+            f"D | K (shifts={list(shifts_hz)[:4]}..., Fs={sample_rate}, "
+            f"D={decimation})")
+    return grid
+
+
 def pfb_taps_to_polyphase(taps, num_channels):
     """(T,) prototype low-pass -> (K, Q) polyphase matrix, zero-padding T
     up to a multiple of K. Row r holds h[r], h[K+r], h[2K+r], ..."""
@@ -75,40 +87,6 @@ def _dft_matrices(k):
     r = np.arange(k)[None, :]
     ang = -2.0 * np.pi * c * r / k
     return (np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32))
-
-
-def pfb_preferred(shifts_hz, sample_rate, decimation, num_taps,
-                  max_p=8, min_q=4):
-    """(k, bins) when the measured PFB-win rule holds for this config,
-    else None: uniform Fs/k grid, D | k, k >= 8, Q = ceil(T/k) >= min_q
-    fold taps, P = k/D a power of two <= max_p, and the channel count
-    filling at least half the grid (the round-4/5 v5e design-space
-    tables in BASELINE.md: long prototype filters at near-critical
-    decimation win ~1.3-2.2x; short filters / heavy oversampling lose).
-    Round 5 extended the boundary from P <= 4 to P <= 8: with the PFB
-    plans' n_sub=2 default the P=8 wideband config measures 446-542 us
-    vs the dense kernel's 743-750; P=16 still loses (695 vs 428). The
-    C >= K/2 and pow2-P guards keep auto inside measured territory —
-    every PFB win was measured at C = K, and a 1-channel receiver that
-    happens to sit on a K=20 grid measured 15x SLOWER through the PFB
-    front (the fold + per-phase window traffic is per-grid work that
-    only amortizes over many channels; round-5 run_all catch). Drives
-    the models' impl='auto' TPU dispatch."""
-    grid = uniform_grid(shifts_hz, sample_rate,
-                        multiple_of=int(decimation))
-    if grid is None:
-        return None
-    k, bins = grid
-    d = int(decimation)
-    p = k // d
-    if k < 8 or k % d != 0 or p > int(max_p) or (p & (p - 1)) != 0:
-        return None
-    if 2 * len(bins) < k:
-        return None
-    q = -(-int(num_taps) // k)
-    if q < int(min_q) or q > 127:
-        return None
-    return k, bins
 
 
 def _dft_bank_matrix(grid_bins, k):
@@ -130,7 +108,8 @@ def _dft_bank_matrix(grid_bins, k):
     return g.astype(np.float32)
 
 
-def mix_fir_decimate_bank_uniform(x, taps, grid_bins, k_grid, decimation):
+def mix_fir_decimate_bank_uniform(x, taps, grid_bins, k_grid, decimation,
+                                  dft_bank=None):
     """Uniform-grid drop-in for ops.channelize.mix_fir_decimate_bank:
     planar x (N,) -> planar UNROTATED (C, M), M = (N - T)//D + 1, for
     channel shifts f_c = grid_bins[c] * Fs / k_grid (integer bins).
@@ -140,7 +119,7 @@ def mix_fir_decimate_bank_uniform(x, taps, grid_bins, k_grid, decimation):
         a[v, j] = sum_u h[v + Ku] x[jD + v + Ku]               (fold)
 
     The fold costs T MACs per output FRAME shared by ALL channels (vs the
-    dense bank's C*T), and the DFT is one (2C, 2K) MXU matmul — the PFB
+    dense bank's C*T), and the DFT is one (2C, 2K) matmul — the PFB
     factorization wins by ~T/K = Q on the filter stage. Requires D | K
     (windows then decompose as j = w*(K/D) + p with a per-p lane roll of
     the (N/K, K) sample grid; non-divisor D falls back to the dense bank
@@ -148,9 +127,13 @@ def mix_fir_decimate_bank_uniform(x, taps, grid_bins, k_grid, decimation):
     caller applies rotate_bank (or rotate_bank_uniform) exactly as for
     the dense bank.
 
-    This is the TPU-native conclusion of the reference's multi-channel FM
-    intent (/root/reference/src/fm.cu:71-179): O(T + C*K) instead of
-    O(C*T) MACs per output frame.
+    ``dft_bank``: the (2C, 2K) matrix _dft_bank_matrix(grid_bins, K) builds,
+    given as an array instead — the sharded step passes each channel shard
+    its rows as a shard_map operand (grid_bins is then unused).
+
+    This is the conclusion of the reference's multi-channel FM intent
+    (/root/reference/src/fm.cu:71-179): O(T + C*K) instead of O(C*T) MACs
+    per output frame.
     """
     k = int(k_grid)
     d = int(decimation)
@@ -196,12 +179,13 @@ def mix_fir_decimate_bank_uniform(x, taps, grid_bins, k_grid, decimation):
 
     a_re = fold(x.re)
     a_im = fold(x.im)
-    g = jnp.asarray(_dft_bank_matrix(grid_bins, k))    # (2C, 2K)
+    g = jnp.asarray(_dft_bank_matrix(grid_bins, k) if dft_bank is None
+                    else dft_bank)                     # (2C, 2K)
     a_all = jnp.concatenate([a_re, a_im], axis=1)      # (P, 2K, NW)
     f = jnp.einsum("ck,pkw->cpw", g, a_all,
                    precision=jax.lax.Precision.HIGHEST)  # (2C, P, NW)
     # interleave j = w * P + p and trim the ragged tail
-    c_cnt = len(grid_bins)
+    c_cnt = g.shape[0] // 2
     f = jnp.transpose(f.reshape(c_cnt, 2, p_cnt, nw),
                       (0, 1, 3, 2)).reshape(c_cnt, 2, nw * p_cnt)[..., :m]
     return ComplexArray(f[:, 0, :], f[:, 1, :])
@@ -240,7 +224,7 @@ def pfb_synthesize(channels, taps, num_channels=None, hop=None):
     sum; the lane window cycles with m mod P, P = K/D). Oversampled
     banks are what make near-perfect-reconstruction duplex chains
     possible — the critical bank's adjacent-channel aliasing is
-    structural (BASELINE round-5 256-ary rejection) while a 2x bank
+    structural (dense 256-ary QAM does not survive it) while a 2x bank
     round-trips dense QAM cleanly.
     """
     y = channels if is_planar(channels) else \
@@ -393,7 +377,7 @@ def pfb_synthesize_block(channels, taps, num_channels=None, tail=None,
     return out[..., t_len * d:], new_tail
 
 
-def pfb_channelize_block(x, taps, num_channels, tail=None, impl="xla"):
+def pfb_channelize_block(x, taps, num_channels, tail=None):
     """Streaming pfb_channelize: (filt (..., K, N//K), new_tail). ``tail``
     is the previous block's last (Q-1)*K raw samples (planar; zeros at
     stream start); N must divide by K. Block-split == single-shot
@@ -414,7 +398,7 @@ def pfb_channelize_block(x, taps, num_channels, tail=None, impl="xla"):
     buf = ComplexArray(
         jnp.concatenate([tail.re, xp.re], axis=-1),
         jnp.concatenate([tail.im, xp.im], axis=-1))
-    out = pfb_channelize(buf, taps, k, impl=impl)
+    out = pfb_channelize(buf, taps, k)
     # tail from the CONCATENATED stream: a block shorter than (Q-1)*K
     # samples must keep part of the previous tail (code-review round 4)
     new_tail = buf[..., buf.shape[-1] - hist:]
@@ -430,37 +414,15 @@ def pfb_channelize(x, taps, num_channels, impl="xla"):
     channelize(x, taps, shifts=[-c*Fs/K ...], decimation=K) output windows
     aligned at j*K (same "window starts at j*D" convention as ops/fir.py).
 
-    impl: 'xla' (fold conv + DFT matmul, above) or 'pallas' — the uniform
-    grid is exactly a complex-tap-bank conv with g_c[t] = h[t]e^{-2i pi ct/K}
-    (the rotor e^{-2i pi cjK/K} = 1 at critical decimation), so the stacked
-    single-kernel channelizer (kernels/channelize_pallas.py) runs it as one
-    VMEM-resident matmul chain: no HBM fold intermediate, bf16x3 contraction
-    (~1e-4 relative; 1-D input only). 'auto' picks by the measured v5e
-    crossover: the dense bank does K*T MACs/frame vs the factorization's
-    T + K^2, so pallas wins at small K (12.8 vs 6.6 Gsps at K=16) and
-    loses once K is large (10.1 vs 15.4 at K=64) — pallas for K <= 32 on
-    TPU, xla otherwise.
+    impl: 'xla' / 'auto' — fold conv + DFT matmul (above); no
+    hand-written kernel serves the PFB.
     """
+    if impl not in ("auto", "xla"):
+        raise ValueError(f"pfb_channelize: unknown impl {impl!r} "
+                         "(expected 'auto' or 'xla')")
     k = int(num_channels)
     if not is_planar(x):
         x = ComplexArray.from_complex(jnp.asarray(x))
-    if impl == "auto":
-        impl = ("pallas" if k <= 32 and x.re.ndim == 1
-                and is_tpu_backend() else "xla")
-    if impl == "pallas":
-        from gsdr_tpu.kernels.channelize_pallas import (
-            mix_fir_decimate_bank_pallas,
-        )
-        from gsdr_tpu.ops.channelize import make_complex_tap_bank
-
-        taps_np = np.asarray(taps, np.float64)
-        q = -(-len(taps_np) // k)
-        padded = np.zeros(k * q)
-        padded[:len(taps_np)] = taps_np
-        # shift ratio f_c/Fs = -c/K expressed with integral (f, Fs) so the
-        # bank phases are exact integer-arithmetic fractions
-        bank = make_complex_tap_bank(padded, [-c for c in range(k)], k)
-        return mix_fir_decimate_bank_pallas(x, bank, k)
     poly = jnp.asarray(pfb_taps_to_polyphase(taps, k))  # (K, Q)
     q = poly.shape[1]
     n = x.shape[-1]
@@ -479,7 +441,7 @@ def pfb_channelize(x, taps, num_channels, impl="xla"):
             dimension_numbers=("NCH", "OIH", "NCH"),
             feature_group_count=k,
             preferred_element_type=jnp.float32,
-            precision=lax.Precision.HIGHEST,  # TPU convs default to bf16
+            precision=lax.Precision.HIGHEST,
         )                                           # (B, K, m)
         return out
 
@@ -489,7 +451,7 @@ def pfb_channelize(x, taps, num_channels, impl="xla"):
     wr, wi = _dft_matrices(k)
     wrj, wij = jnp.asarray(wr), jnp.asarray(wi)
     # filt[c, j] = sum_r W[c, r] * u[j, r]; complex W x complex u.
-    hi = "highest"  # DFT matmul must not silently drop to bf16
+    hi = "highest"  # DFT matmul must not silently drop to TF32
     f_re = jnp.einsum("cr,brm->bcm", wrj, u_re, precision=hi) \
         - jnp.einsum("cr,brm->bcm", wij, u_im, precision=hi)
     f_im = jnp.einsum("cr,brm->bcm", wij, u_re, precision=hi) \

@@ -17,10 +17,9 @@ consolidated-buffer variants (src/qpsk.cu:148-219,500-585,26-100) all
 collapse into leading batch axes: every function here operates on the last
 axis and broadcasts over any leading channel axes.
 
-Representation notes (TPU path): symbols/bytes are carried as int32 (the
-deployment TPU backend does not support uint8 at executable boundaries) —
+Representation notes: the planar path carries symbols/bytes as int32 —
 pass ``out_dtype=jnp.int32`` and ``planar=True`` where applicable; the
-defaults (uint8 / complex64) serve the CPU-backend convenience API.
+defaults (uint8 / complex64) serve the convenience API.
 """
 
 import jax.numpy as jnp
@@ -38,7 +37,7 @@ def qpsk_constellation(amplitude=1.0, dtype=jnp.complex64):
 def unpack_2bit_symbols(packed, num_symbols=None):
     """Byte values (..., nB) -> 2-bit symbol values (..., 4*nB), LSB-first.
 
-    Accepts any integer dtype; computes in int32 (TPU-safe) and returns
+    Accepts any integer dtype; computes in int32 and returns
     int32 symbol values in [0, 3].
     """
     packed = jnp.asarray(packed).astype(jnp.int32)
@@ -55,7 +54,7 @@ def pack_2bit_symbols(symbols, out_dtype=jnp.uint8):
 
     Pads the tail with zero symbols when N is not a multiple of 4 (the
     reference's partial-byte fields are likewise zero-filled). Pass
-    ``out_dtype=jnp.int32`` on the TPU path.
+    ``out_dtype=jnp.int32`` on the planar path.
     """
     symbols = jnp.asarray(symbols).astype(jnp.int32)
     n = symbols.shape[-1]
@@ -72,9 +71,7 @@ def qpsk_modulate_symbols(symbols, amplitude=1.0):
 
     The 4-point table is pure sign arithmetic: re flips on bit0, im on
     bit1 (00->(+,+), 01->(-,+), 10->(+,-), 11->(-,-)). Arithmetic
-    instead of a table gather — TPU gathers from tiny tables lower to a
-    per-element dynamic-slice loop (see qpsk256's _modulate_select;
-    measured 69x on v5e) — and bit-identical (values are exactly +-a
+    instead of a table gather, and bit-identical (values are exactly +-a
     either way). Shared by qpsk_modulate and the sharded modem
     (parallel/modem.py)."""
     sym = jnp.asarray(symbols).astype(jnp.int32)
@@ -112,6 +109,6 @@ def qpsk_demodulate(x, out_dtype=jnp.uint8):
     """Complex samples (..., N) -> packed byte values (..., ceil(N/4)).
 
     Parity with gsdrQpskDemodulate (src/qpsk.cu:391-412) minus its atomics.
-    Pass ``out_dtype=jnp.int32`` on the TPU path.
+    Pass ``out_dtype=jnp.int32`` on the planar path.
     """
     return pack_2bit_symbols(qpsk_demodulate_symbols(x), out_dtype=out_dtype)

@@ -16,7 +16,7 @@ constellation is just an array you pass in — build once with
 qpsk256_constellation().
 
 Demodulation replaces the reference's per-sample O(256) nearest-neighbor
-loop (src/qpsk256.cu:172-192) with one MXU matmul: argmin_i |x - C_i|^2 =
+loop (src/qpsk256.cu:172-192) with one matmul: argmin_i |x - C_i|^2 =
 argmin_i (|C_i|^2 - 2 Re(x conj(C_i))), computed for all samples against all
 256 points as an (N, 2) x (2, 256) dot. Ties break to the lowest symbol
 index, like the reference's strict < comparison.
@@ -26,7 +26,6 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from gsdr_tpu.backend import is_tpu_backend
 from gsdr_tpu.carray import ComplexArray, is_planar
 
 RECTANGULAR = 0
@@ -37,7 +36,7 @@ def qpsk256_constellation(constellation_type=RECTANGULAR, amplitude=1.0,
                           planar=False):
     """Build the 256-point table, indexed by symbol value.
 
-    Returns complex64 by default, or a planar ComplexArray (TPU path) with
+    Returns complex64 by default, or a planar ComplexArray with
     ``planar=True``. Built host-side in numpy — the functional replacement
     for the reference's init-kernel + __constant__-memory upload dance
     (src/qpsk256.cu:262-295).
@@ -71,10 +70,7 @@ def qpsk256_constellation(constellation_type=RECTANGULAR, amplitude=1.0,
     else:
         raise ValueError(f"unknown constellation type {constellation_type}")
     # numpy on purpose (project convention for host-side constant tables):
-    # a numpy table stays concrete under an active jit trace, so the
-    # modulate fast path (np.asarray of the values) works even when the
-    # table is built inside a traced function (jnp.asarray there would
-    # produce a tracer and force the slow gather fallback).
+    # a numpy table stays concrete under an active jit trace.
     if planar:
         return ComplexArray(
             pts.real.copy().astype(np.float32),
@@ -92,53 +88,16 @@ def _check_table(constellation):
             "(build one with qpsk256_constellation)")
 
 
-def _modulate_select(symbols, re_vals, im_vals):
-    """Table lookup as an unrolled 256-constant select-sum.
-
-    TPU dynamic gathers from a 256-entry table lower to a per-element
-    dynamic-slice loop (measured 8.5 ms / 2^19 symbols = 62 Msym/s on
-    v5e); 256 scalar-constant selects are one fused VPU pass over the
-    symbols (~100 us). Bit-identical: selects the exact same table
-    values the gather would return."""
-    re = jnp.full(symbols.shape, float(re_vals[0]), jnp.float32)
-    im = jnp.full(symbols.shape, float(im_vals[0]), jnp.float32)
-    for k in range(1, 256):
-        m = symbols == k
-        re = jnp.where(m, float(re_vals[k]), re)
-        im = jnp.where(m, float(im_vals[k]), im)
-    return re, im
-
-
 def qpsk256_modulate(symbols, constellation):
     """Symbol byte values (..., N) -> samples via table lookup.
 
     Parity with gsdrQpsk256Modulate (src/qpsk256.cu:74-101); the 4x variant
     is a leading batch axis. Representation follows ``constellation``:
     complex64 table -> complex64 samples, planar table -> ComplexArray.
-
-    On non-CPU backends with a concrete table, the lookup runs as an
-    unrolled constant-select pass instead of a gather (see
-    _modulate_select); under a traced table it falls back to the gather.
     """
     _check_table(constellation)
     symbols = jnp.asarray(symbols).astype(jnp.int32)
-    planar = is_planar(constellation)
-    if is_tpu_backend():
-        try:
-            if planar:
-                re_vals = np.asarray(constellation.re)
-                im_vals = np.asarray(constellation.im)
-            else:
-                pts = np.asarray(constellation)
-                re_vals, im_vals = pts.real, pts.imag
-        except jax.errors.TracerArrayConversionError:
-            re_vals = None
-        if re_vals is not None:
-            re, im = _modulate_select(symbols, re_vals, im_vals)
-            if planar:
-                return ComplexArray(re, im)
-            return re + 1j * im
-    if planar:
+    if is_planar(constellation):
         return ComplexArray(constellation.re[symbols], constellation.im[symbols])
     return jnp.asarray(constellation)[symbols]
 
@@ -147,8 +106,8 @@ def qpsk256_modulate_rect(symbols, amplitude=1.0):
     """Arithmetic modulation for the RECTANGULAR constellation.
 
     index i*16+q maps to I=(i-7.5)/7.5*A, Q=(q-7.5)/7.5*A
-    (src/qpsk256.cu:29-38), so the table gather — slow on TPU vector
-    units — becomes two integer ops and a multiply-add per symbol.
+    (src/qpsk256.cu:29-38), so the table gather becomes two integer ops
+    and a multiply-add per symbol.
     Bit-identical to qpsk256_modulate with the rectangular table."""
     s = jnp.asarray(symbols).astype(jnp.int32)
     scale = float(amplitude) / 7.5
@@ -169,8 +128,8 @@ def qpsk256_modulate_circular(symbols, amplitude=1.0):
     Reconstructs the ring geometry (src/qpsk256.cu:41-71) per symbol:
     ring k = searchsorted(starts, s) via 8 compares, angle
     2*pi*(s-start_k)/points_k + 0.5*k (remainder: 2*pi*s/256 at r=0.95A),
-    then one f32 sin/cos pair — ~30 VPU ops instead of the 256-constant
-    select-sum (which is bit-identical but ~10x slower). Values agree
+    then one f32 sin/cos pair — a few dozen elementwise ops instead of a
+    table gather. Values agree
     with the float64-built table to f32 sin/cos accuracy (~1e-7 rel,
     five orders below the ~0.1A inter-point spacing), so decisions
     through any of the demodulators are unaffected; use
@@ -193,12 +152,7 @@ def qpsk256_modulate_circular(symbols, amplitude=1.0):
     invp = sel([1.0 / p for p in _CIRC_POINTS], 1.0 / 256.0)
     offs = jnp.where(ring == 8, 0.0, 0.5 * ring.astype(jnp.float32))
     ang = _TWO_PI * (s.astype(jnp.float32) - start) * invp + offs
-    # sincos_poly (~1e-7 abs, round 4): the two transcendentals were the
-    # bulk of the modulator's VPU time (measured 24.8 -> ~15 us / 2^19)
-    from gsdr_tpu.kernels.kmath import sincos_poly
-
-    c, sn = sincos_poly(ang)
-    return ComplexArray(radius * c, radius * sn)
+    return ComplexArray(radius * jnp.cos(ang), radius * jnp.sin(ang))
 
 
 def qpsk256_demodulate_circular(x, amplitude=1.0, out_dtype=jnp.uint8):
@@ -219,13 +173,7 @@ def qpsk256_demodulate_circular(x, amplitude=1.0, out_dtype=jnp.uint8):
     xp = x if is_planar(x) else ComplexArray.from_complex(jnp.asarray(x))
     re, im = xp.re, xp.im
     rho2 = re * re + im * im
-    # polynomial atan2 (~1e-6 rad, round 4): cheaper than the libm
-    # lowering and 5 orders below the narrowest angular Voronoi
-    # half-width (pi/56 ~ 0.056 rad), so decisions are unaffected except
-    # exact boundary ties (same class as the ring decomposition itself)
-    from gsdr_tpu.kernels.kmath import atan2_poly
-
-    theta = atan2_poly(im, re)  # [-pi, pi]
+    theta = jnp.arctan2(im, re)  # [-pi, pi]
 
     # ring 0: the origin point, symbol 0
     best_d = rho2
@@ -292,20 +240,15 @@ def qpsk256_demodulate(x, constellation, out_dtype=jnp.uint8, impl="auto"):
     """Complex samples (..., N) -> nearest-constellation symbol values.
 
     Replaces the reference's exhaustive per-sample loop
-    (src/qpsk256.cu:154-195) with nearest-neighbor over the full table.
-    impl='auto' picks the VMEM-resident Pallas kernel on TPU
-    (kernels/qpsk256_pallas.py — 1015 Msym/s on v5e, bit-identical to
-    the XLA matmul+argmin which measures 611) and the XLA form
-    elsewhere. Pass ``out_dtype=jnp.int32`` on the TPU path (no uint8 at
-    executable boundaries there). For the rectangular geometry prefer
-    qpsk256_demodulate_rect (exact, O(1) per sample).
+    (src/qpsk256.cu:154-195) with nearest-neighbor over the full table as
+    one matmul + argmin. impl: 'auto' / 'xla' (no kernel serves it). For
+    the rectangular geometry prefer qpsk256_demodulate_rect (exact, O(1)
+    per sample).
     """
     _check_table(constellation)
-    if impl == "pallas" or (impl == "auto" and is_tpu_backend()):
-        from gsdr_tpu.kernels.qpsk256_pallas import qpsk256_demodulate_pallas
-
-        return qpsk256_demodulate_pallas(x, constellation,
-                                         out_dtype=out_dtype)
+    if impl not in ("auto", "xla"):
+        raise ValueError(f"qpsk256_demodulate: unknown impl {impl!r} "
+                         "(expected 'auto' or 'xla')")
     xp = x if is_planar(x) else ComplexArray.from_complex(jnp.asarray(x))
     cp = constellation if is_planar(constellation) else \
         ComplexArray.from_complex(jnp.asarray(constellation))

@@ -2,7 +2,7 @@
 
 Parity with gsdrQuadFmDemod / gsdrQuadAmDemod
 (/root/reference/src/quad_demod.cu:23-54). Both dispatch on representation:
-ComplexArray (planar TPU path) or complex64 arrays.
+ComplexArray (planar path) or complex64 arrays.
 """
 
 import jax.numpy as jnp

@@ -12,7 +12,7 @@ output index j = q*L + r (r < L),
 so each of the L output phases is an ordinary stride-M FIR over the input
 with its own decimated tap set — exactly the complex-tap-bank conv shape
 (one conv, 2L output features, stride M; ops/channelize.py machinery),
-followed by an interleave. On TPU the whole resampler is one MXU conv.
+followed by an interleave. The whole resampler is one conv.
 
 Taps convention: ``taps`` is the prototype low-pass designed at rate
 L * Fs_in with cutoff min(1/L, 1/M)/2 (pass ``design_resampler_taps`` for

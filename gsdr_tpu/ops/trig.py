@@ -23,7 +23,7 @@ def cosine_c(phi_begin, phi_end, num_elements, planar=False):
     """Complex exponential e^{j*theta_i}: cos(theta) + j*sin(theta).
 
     Matches k_ComplexCosine (src/trig.cu:20-34): real part is cos, imaginary
-    part is sin. ``planar=True`` returns a ComplexArray (TPU path).
+    part is sin. ``planar=True`` returns a ComplexArray (planar path).
     """
     theta = _phase_ramp(phi_begin, phi_end, num_elements)
     lo = expj(theta)

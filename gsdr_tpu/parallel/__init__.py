@@ -1,18 +1,19 @@
 """Distributed layer: device meshes, halo exchange, sharded pipelines.
 
 The reference is single-process, single-GPU-per-call — it has no distributed
-backend at all (SURVEY.md section 2.3). This layer is the new capability the
-TPU build adds: signals scale over a jax.sharding.Mesh with two axes,
+backend at all (SURVEY.md section 2.3). This layer is the new capability
+this framework adds: signals scale over a jax.sharding.Mesh with two axes,
 
   * ``channel`` — independent streams (the reference's 2x/4x/8x multi-stream
     kernel families become rows of a channel-sharded batch axis);
   * ``time``   — the sample axis, split into contiguous blocks per chip; the
     reference's intra-device overlap contracts (FIR reads T-1 past its
     window, src/fir.cu:44-46; FM's +1 sample warp shuffle, src/fm.cu:58-64)
-    become (T-1)- and 1-sample halo exchanges between time-neighbor chips
-    over ICI via lax.ppermute. Oscillator phase needs NO communication: it is
-    computed from global sample indices (gsdr_tpu.utils.phase), so any chip
-    can mint the exact LO for its block.
+    become a (T-1+D)-sample halo exchange between time-neighbour devices
+    via lax.ppermute (NVLink between the GPUs of one host). Oscillator phase
+    needs NO communication: it is computed from global sample indices
+    (gsdr_tpu.utils.phase), so any device can mint the exact LO for its
+    block.
 
 IIR state is the one true sequential dependency; gsdr_tpu.parallel.iir
 propagates it across time shards with an all-gather of per-shard

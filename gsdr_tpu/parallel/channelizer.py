@@ -6,23 +6,21 @@ Builds shard_map'd versions of the gsdr_tpu.pipelines step functions over a
   * channels shard with zero communication — each chip holds the rows of the
     complex-tap-bank conv kernel (gsdr_tpu.ops.channelize) for its channels
     (the reference's Nx multi-stream families, embarrassingly parallel);
-  * the time axis shards the raw RF stream with one (T-1)-sample left-halo
-    ppermute for the fused channelizer window, a 1-sample halo for the FM
-    discriminator (the reference's warp-shuffle contract,
-    /root/reference/src/fm.cu:58-64, now over ICI), an all-gather of order-m
-    IIR states (gsdr_tpu.parallel.iir), and a psum-masked broadcast of the
-    stream tail for the carried state;
-  * oscillator phase is communication-free: every chip mints its exact LO
-    rotors from global sample indices (gsdr_tpu.utils.phase).
+  * the time axis shards the raw RF stream with one (T-1+D)-sample
+    left-halo ppermute: T-1 samples for the channelizer windows and D more
+    so that every shard computes its left neighbour's last filtered sample
+    itself, the FM discriminator's +1-sample contract (the reference's
+    warp shuffle, /root/reference/src/fm.cu:58-64) with no second exchange;
+    one all-gather of the de-emphasis states and a psum-masked broadcast
+    of the stream tail complete the carried state;
+  * oscillator phase is communication-free: every device mints its exact
+    LO phases from global sample indices (gsdr_tpu.utils.phase).
 
 Streaming state lives replicated over 'time' (the RF tail is channel-
 agnostic) with per-channel state sharded over 'channel', so a sharded step
 composes exactly like the single-chip step: same state pytree, same
 semantics, N/decimation outputs per N-sample block.
 """
-
-import functools
-import warnings
 
 import numpy as np
 
@@ -36,14 +34,18 @@ try:
 except ImportError:  # older jax
     from jax.experimental.shard_map import shard_map as _shard_map
 
-from gsdr_tpu.backend import is_tpu_backend
 from gsdr_tpu.carray import ComplexArray
-from gsdr_tpu.ops.channelize import mix_fir_decimate_bank, rotate_bank
+from gsdr_tpu.ops.channelize import (
+    discriminator_carry,
+    discriminator_prev,
+    fm_discriminate_bank,
+    mix_fir_decimate_bank,
+)
 from gsdr_tpu.ops.fir import fir
 from gsdr_tpu.ops.iir import iir_block
-from gsdr_tpu.ops.quad_demod import quad_am_demod, quad_fm_demod
+from gsdr_tpu.ops.pfb import _dft_bank_matrix, mix_fir_decimate_bank_uniform
+from gsdr_tpu.ops.quad_demod import quad_am_demod
 from gsdr_tpu.parallel.halo import left_halo, last_shard_tail
-from gsdr_tpu.parallel.iir import sharded_iir
 
 
 def _shmap(f, mesh, in_specs, out_specs):
@@ -80,393 +82,190 @@ def sharded_fir(x, taps, mesh, decimation=1, tail=None):
     )(x, tail)
 
 
-def _channelize_local(rf_l, tail, kernel_l, table_l, n0, nt, dec, fs):
-    """Shared shard-local fused channelize: halo'd raw RF -> rotated (C_l, M).
+def _front(model, mesh):
+    """(bank operand, its PartitionSpec, fn(buf, bank_l) -> un-rotated
+    (C_l, M) bank output) for the model's channelizer front. The dense
+    front shards the (2C, 2, T) tap bank by channel; impl='pfb' shards the
+    (2C, 2K) DFT bank of the uniform grid the same way."""
+    c_shards = mesh.shape["channel"]
+    if model.num_channels % c_shards != 0:
+        raise ValueError(
+            f"{model.num_channels} channels do not split over "
+            f"{c_shards} channel shards")
+    dec = model.decimation
+    if model.impl == "pfb":
+        k_grid, bins = model._pfb_grid()
+        taps = model.low_pass_taps
 
-    Returns (filt, new_tail): the conv consumes the (T-1)-sample left halo
-    (shard 0 takes the carried stream tail), and rotor phases come from the
-    global window-start index n0 - (T-1) + s*n_local + j*D — exact, no comm.
-    """
-    s = lax.axis_index("time")
-    n_local = rf_l.shape[-1]
-    buf = left_halo(rf_l, "time", nt - 1, fill=tail)
-    y = mix_fir_decimate_bank(buf, kernel_l, dec)
-    rot0 = (n0 + jnp.int32(fs - (nt - 1) % fs)
-            + (s * jnp.int32(n_local % fs)) % fs) % fs
-    filt = rotate_bank(y, table_l, rot0, dec)
-    new_tail = last_shard_tail(rf_l, "time", nt - 1)
-    return filt, new_tail
+        def apply(buf, bank_l):
+            return mix_fir_decimate_bank_uniform(buf, taps, None, k_grid, dec,
+                                                 dft_bank=bank_l)
+
+        return _dft_bank_matrix(bins, k_grid), P("channel", None), apply
+
+    def apply(buf, bank_l):
+        return mix_fir_decimate_bank(buf, bank_l, dec)
+
+    return model._tap_bank(), P("channel", None, None), apply
 
 
 def make_sharded_fm_step(model, mesh):
     """shard_map'd FmChannelizer.step over a ('channel', 'time') mesh.
 
-    Returns ``step(state, rf_planar)`` with the same signature/state pytree
-    as the single-chip model.step. rf is a planar (N,) block sharded over
+    Returns the jitted ``step(state, rf_planar)`` with the same
+    signature/state pytree as the single-device model.step. rf is a planar (N,) block sharded over
     'time'; audio comes back (C, N/D) sharded over ('channel', 'time').
 
-    Dispatch mirrors the single-chip model: impl='pallas' (or 'auto' on a
-    TPU backend with a fusable shape) runs the FUSED single-kernel chain on
-    every shard's halo'd local block — the round-2 judge's top finding was
-    that the sharded path only reached the ~50x slower XLA chain. The fused
-    sharded decomposition (all per-shard, one kernel launch each):
+    Dispatch follows the model (gsdr_tpu.backend.use_kernel): the fused
+    kernel runs on every shard's halo'd local block where model.step would
+    run it, the XLA chain (dense or impl='pfb' front) elsewhere. Per shard:
 
-      * (T-1+D)-sample left-halo ppermute: T-1 for the filter windows plus
-        D so each shard can compute the PREVIOUS shard's last filtered
-        sample locally (the discriminator's +1-sample contract,
-        /root/reference/src/fm.cu:58-64) — one tiny extra conv window
-        instead of a second communication round;
-      * the fused kernel runs with zero de-emphasis state; the cross-shard
+      * a (T-1+D)-sample left-halo ppermute: T-1 for the filter windows
+        plus D so each shard computes the PREVIOUS shard's last filtered
+        sample locally — one extra window instead of a second exchange;
+      * the chain runs with zero de-emphasis state, and the cross-shard
         IIR recurrence is restored EXACTLY by linearity (the first-order
-        specialization of parallel/iir.py): one all_gather of the (C_l, 1)
-        zero-state final z per shard, then audio += z_start * a^j;
-      * channel shards receive their own stacked-tap/rotor tables as
-        shard_map operands (gh/gl/pj/bt with a leading channel-shard axis).
+        case of parallel/iir.py): one all_gather of the (C_l, 1)
+        zero-state final states, then audio += z_start * a^j.
 
-    Communication per step: one (T-1+D)-sample ppermute + one (C_l,)
-    all_gather + two scalar-ish psums — O(halo), independent of N.
+    Communication per step: one (T-1+D)-sample ppermute, one (C_l,)
+    all_gather and two psums of (C_l,) values — O(halo), independent of N.
     """
     t_shards = mesh.shape["time"]
-    c_shards = mesh.shape["channel"]
-    c_cnt = model.num_channels
     nt = model.num_taps
     dec = model.decimation
     gain = model.gain
     fs = int(round(model.sample_rate))
     b, a = model._deemph()
-    kernel_host = model._tap_bank()          # (2C, 2, T)
-    table_host = jnp.asarray(model._lo_table())  # (C, 4)
-    shifts = model._shifts()
+    pole = -float(a[1]) / float(a[0])
+    bank_host, bank_spec, front = _front(model, mesh)
+    table_host = jnp.asarray(model._lo_table())       # (C, 4)
+    halo = nt - 1 + dec
+    kernel = model.uses_kernel()
+    if kernel:
+        from gsdr_tpu.kernels.fm_chain_triton import fm_chain
 
-    def body(n0, tail_re, tail_im, car_re, car_im, zi, kernel, table,
+    def body(n0, tail_re, tail_im, car_re, car_im, zi, bank, table,
              rf_re, rf_im):
+        s = lax.axis_index("time")
+        n_l = rf_re.shape[-1]
+        m_l = n_l // dec
         rf_l = ComplexArray(rf_re, rf_im)
-        tail = ComplexArray(tail_re, tail_im)
-        filt, new_tail = _channelize_local(
-            rf_l, tail, kernel, table, n0, nt, dec, fs)
+        zpad = jnp.zeros((dec,), jnp.float32)
+        fill = ComplexArray(jnp.concatenate([zpad, tail_re], -1),
+                            jnp.concatenate([zpad, tail_im], -1))
+        ext = left_halo(rf_l, "time", halo, fill=fill)   # (T-1+D+n_l,)
+        buf = ext[..., dec:]                             # (T-1+n_l,)
 
+        # window 0 of this shard starts at global index
+        # n0 - (T-1) + s*n_l; the discriminator's previous sample is the
+        # left neighbour's last output (one window of the halo), or for
+        # shard 0 the carried state
+        rot0 = (n0 + (s * jnp.int32(n_l % fs)) % fs
+                + jnp.int32((fs - (nt - 1) % fs) % fs)) % fs
         carry = ComplexArray(car_re, car_im)
-        disc_in = left_halo(filt, "time", 1, fill=carry)
-        demod = quad_fm_demod(disc_in, gain)
-        new_carry = last_shard_tail(filt, "time", 1)
+        y_prev = front(ext[..., :nt], bank)              # (C_l, 1)
+        first = discriminator_prev(carry, table, rot0, dec)
+        prev = ComplexArray(jnp.where(s == 0, first.re, y_prev.re),
+                            jnp.where(s == 0, first.im, y_prev.im))
 
-        audio, new_zi = sharded_iir(b, a, demod, zi, "time", t_shards,
-                                    block_len=256)
+        zeros_z = jnp.zeros_like(zi)
+        if kernel:
+            audio0, y_last, zcar = fm_chain(
+                buf, bank, table, rot0, dec, gain, b, a, carry, zeros_z,
+                prev=prev, interpret=model.interpret)
+        else:
+            y = front(buf, bank)
+            demod = fm_discriminate_bank(y, prev, table, dec, gain)
+            y_last = y[..., m_l - 1:]
+            audio0, zcar = iir_block(
+                np.asarray(b, np.float32), np.asarray(a, np.float32),
+                demod, zi=zeros_z, block_len=256)
 
-        n_total = rf_re.shape[-1] * t_shards
-        n0_new = (n0 + jnp.int32(n_total % fs)) % fs
+        # exact cross-shard de-emphasis restore (linearity; float64 host
+        # powers — pole^m_l underflows to 0 for long shards, which is the
+        # right limit: the pole's memory died out)
+        pow_l = np.power(pole, m_l * np.arange(t_shards + 1, dtype=np.float64))
+        pow_l = pow_l.astype(np.float32)
+        ajs = np.power(pole, np.arange(m_l, dtype=np.float64))
+        d_all = lax.all_gather(zcar, "time")             # (t_sh, C_l, 1)
+        powj = jnp.asarray(pow_l)
+        z_start = powj[s] * zi
+        for k in range(t_shards):
+            zk = jnp.where(k < s, powj[jnp.clip(s - 1 - k, 0, t_shards)], 0.0)
+            z_start = z_start + zk * d_all[k]
+        audio = audio0 + z_start * jnp.asarray(ajs, jnp.float32)[None, :]
+        zf = float(pow_l[t_shards]) * zi
+        for k in range(t_shards):
+            zf = zf + float(pow_l[t_shards - 1 - k]) * d_all[k]
+
+        last = jnp.where(s == t_shards - 1, 1.0, 0.0)
+        y_end = ComplexArray(lax.psum(last * y_last.re, "time"),
+                             lax.psum(last * y_last.im, "time"))
+        n0_new = (n0 + jnp.int32((n_l * t_shards) % fs)) % fs
+        rot0_next = (n0_new + jnp.int32((fs - (nt - 1) % fs) % fs)) % fs
+        new_carry = discriminator_carry(y_end, table, rot0_next, dec)
+        new_tail = last_shard_tail(rf_l, "time", nt - 1)
         return (n0_new, new_tail.re, new_tail.im, new_carry.re,
-                new_carry.im, new_zi, audio)
+                new_carry.im, zf, audio)
 
     rep = P()  # replicated
     chan = P("channel", None)
     mapped = _shmap(
         body, mesh,
-        in_specs=(rep, rep, rep, chan, chan, chan,
-                  P("channel", None, None), chan, P("time"), P("time")),
+        in_specs=(rep, rep, rep, chan, chan, chan, bank_spec, chan,
+                  P("time"), P("time")),
         out_specs=(rep, rep, rep, chan, chan, chan, P("channel", "time")),
     )
 
-    # ---- fused single-kernel path (per block length N) ----------------------
-    c_l = c_cnt // c_shards if c_cnt % c_shards == 0 else None
-
-    use_pfb = model.impl in ("pfb", "pfb_pallas")
-    if use_pfb:
-        from gsdr_tpu.ops.pfb import uniform_grid
-
-        grid = uniform_grid(shifts, model.sample_rate,
-                            multiple_of=dec)
-        # uniform_grid(multiple_of=D) lifts k to an lcm with D or returns
-        # None, so D | grid[0] holds whenever grid exists.
-        if grid is None:
-            raise ValueError(
-                "impl='pfb' needs every channel shift on an Fs/K grid "
-                f"with D | K (Fs={model.sample_rate}, D={dec})")
-
-    def _fused_geometry_ok(n):
-        from gsdr_tpu.kernels.fm_chain_pallas import fused_chain_supported
-
-        if c_l is None or n % (t_shards * dec) != 0:
-            return False
-        if use_pfb:
-            return True  # pfb plans validate their own geometry
-        m_l = n // t_shards // dec
-        return fused_chain_supported(dec, nt, m_l, c_l)
-
-    @functools.lru_cache(maxsize=8)
-    def _fused_mapped(n):
-        from gsdr_tpu.kernels.fm_chain_pallas import (
-            fm_chain_apply,
-            fm_chain_plan,
-            pfb_fm_chain_plan,
-        )
-
-        n_l = n // t_shards
-        m_l = n_l // dec
-        n_buf_l = n_l + nt - 1
-        if use_pfb:
-            # PFB front per channel shard: same sharded decomposition —
-            # the plan's tables (split DFT bank, rotor phasors) slice by
-            # channel exactly like the dense plan's
-            kg, bins = grid
-            plans = [
-                pfb_fm_chain_plan(
-                    model.low_pass_taps, dec, gain, b, a, n_buf_l,
-                    shifts[ci * c_l:(ci + 1) * c_l],
-                    model.sample_rate, bins[ci * c_l:(ci + 1) * c_l], kg,
-                    precision=model.precision)
-                for ci in range(c_shards)
-            ]
-        else:
-            plans = [
-                fm_chain_plan(
-                    kernel_host[2 * ci * c_l:2 * (ci + 1) * c_l], dec, gain,
-                    b, a, n_buf_l, shifts[ci * c_l:(ci + 1) * c_l],
-                    model.sample_rate, precision=model.precision)
-                for ci in range(c_shards)
-            ]
-        plan = plans[0]
-        gh_all = np.stack([p.gh for p in plans])
-        gl_all = np.stack([p.gl for p in plans])
-        pj_all = np.stack([p.pj for p in plans])
-        bt_all = np.stack([p.bt for p in plans])
-
-        # de-emphasis cross-shard correction constants (first-order TDF-II:
-        # y[j](z_init=Z) = y0[j] + a^j Z, z_final = z0_final + a^L Z);
-        # float64 host powers — a^L underflows to 0 for long shards, which
-        # is the mathematically right limit (the pole's memory died out).
-        a_pole = -plan.a1
-        pow_l = np.power(np.float64(a_pole),
-                         m_l * np.arange(t_shards + 1, dtype=np.float64))
-        pow_l = pow_l.astype(np.float32)               # (t_sh+1,)
-        ajs = np.power(np.float64(a_pole),
-                       np.arange(m_l, dtype=np.float64)).astype(np.float32)
-
-        halo = nt - 1 + dec
-
-        def body(n0, tail_re, tail_im, car_re, car_im, zi, kernel, table,
-                 gh, gl, pj, bt, rf_re, rf_im):
-            gh, gl, pj, bt = gh[0], gl[0], pj[0], bt[0]
-            s = lax.axis_index("time")
-            rf_l = ComplexArray(rf_re, rf_im)
-            zpad = jnp.zeros((dec,), jnp.float32)
-            fill = ComplexArray(jnp.concatenate([zpad, tail_re], -1),
-                                jnp.concatenate([zpad, tail_im], -1))
-            ext = left_halo(rf_l, "time", halo, fill=fill)  # (T-1+D+n_l,)
-            buf = ext[..., dec:]                            # (T-1+n_l,)
-
-            # This shard's discriminator carry = the PREVIOUS output's
-            # filtered+rotated sample, computed locally from the halo
-            # (one T-sample window); shard 0 takes the carried state.
-            sh_off = (s * jnp.int32(n_l % fs)) % fs
-            y_prev = mix_fir_decimate_bank(ext[..., :nt], kernel, dec)
-            rot_prev = (n0 + sh_off
-                        + jnp.int32((fs - (nt - 1 + dec) % fs) % fs)) % fs
-            prev = rotate_bank(y_prev, table, rot_prev, dec)   # (C_l, 1)
-            carry_f = ComplexArray(
-                jnp.where(s == 0, car_re, prev.re),
-                jnp.where(s == 0, car_im, prev.im))
-
-            rot0 = (n0 + sh_off + jnp.int32((fs - (nt - 1) % fs) % fs)) % fs
-            zeros_z = jnp.zeros_like(zi)
-            audio0, fcar, zcar = fm_chain_apply(
-                plan, buf, table, rot0, carry_f, zeros_z,
-                gh=gh, gl=gl, pj=pj, bt=bt)
-
-            # exact cross-shard de-emphasis restore (linearity; one small
-            # all_gather — the first-order case of parallel/iir.py)
-            d_all = lax.all_gather(zcar, "time")       # (t_sh, C_l, 1)
-            powj = jnp.asarray(pow_l)
-            z_start = powj[s] * zi
-            for k in range(t_shards):
-                zk = jnp.where(
-                    k < s, powj[jnp.clip(s - 1 - k, 0, t_shards)], 0.0)
-                z_start = z_start + zk * d_all[k]
-            audio = audio0 + z_start * jnp.asarray(ajs)[None, :]
-            zf = float(pow_l[t_shards]) * zi
-            for k in range(t_shards):
-                zf = zf + float(pow_l[t_shards - 1 - k]) * d_all[k]
-
-            sel = jnp.where(s == t_shards - 1, 1.0, 0.0)
-            nf_re = lax.psum(sel * fcar.re, "time")
-            nf_im = lax.psum(sel * fcar.im, "time")
-            new_tail = last_shard_tail(rf_l, "time", nt - 1)
-            n0_new = (n0 + jnp.int32(n % fs)) % fs
-            return (n0_new, new_tail.re, new_tail.im, nf_re, nf_im, zf,
-                    audio)
-
-        sh3 = P("channel", None, None)
-        mapped_f = _shmap(
-            body, mesh,
-            in_specs=(rep, rep, rep, chan, chan, chan, sh3, chan,
-                      P("channel", None, None), P("channel", None, None),
-                      sh3, sh3, P("time"), P("time")),
-            out_specs=(rep, rep, rep, chan, chan, chan,
-                       P("channel", "time")),
-        )
-        return mapped_f, gh_all, gl_all, pj_all, bt_all
-
     def step(state, rf):
         n0, tail, carry, zi = state
-        n = rf.shape[-1]
-        if n % (t_shards * dec) != 0:
+        if rf.shape[-1] % (t_shards * dec) != 0:
             raise ValueError("N must divide by time_shards * decimation")
-        fused_ok = _fused_geometry_ok(n)
-        use_fused = model.impl == "pallas" or use_pfb or (
-            model.impl == "auto" and is_tpu_backend() and fused_ok)
-        if model.impl == "auto" and is_tpu_backend() and not fused_ok:
-            warnings.warn(
-                f"sharded FmChannelizer: shape (D={dec}, T={nt}, "
-                f"N={n}, mesh={dict(mesh.shape)}) cannot run the fused "
-                "Pallas chain per shard; falling back to the ~50x slower "
-                "XLA path.", stacklevel=2)
-        if use_fused:
-            if not fused_ok:
-                raise ValueError(
-                    f"impl='pallas' but (D={dec}, T={nt}, N={n}, "
-                    f"mesh={dict(mesh.shape)}) has no fused geometry")
-            mapped_f, gh_all, gl_all, pj_all, bt_all = _fused_mapped(n)
-            (n0n, tre, tim, cre, cim, zin, audio) = mapped_f(
-                n0, tail.re, tail.im, carry.re, carry.im, zi,
-                kernel_host, table_host, gh_all, gl_all, pj_all, bt_all,
-                rf.re, rf.im,
-            )
-            return (n0n, ComplexArray(tre, tim), ComplexArray(cre, cim),
-                    zin), audio
         (n0n, tre, tim, cre, cim, zin, audio) = mapped(
             n0, tail.re, tail.im, carry.re, carry.im, zi,
-            kernel_host, table_host, rf.re, rf.im,
+            bank_host, table_host, rf.re, rf.im,
         )
         return (n0n, ComplexArray(tre, tim), ComplexArray(cre, cim), zin), audio
 
-    return step
+    return jax.jit(step)
 
 
 def make_sharded_am_step(model, mesh):
     """shard_map'd AmReceiver.step over a ('channel', 'time') mesh.
 
-    Like make_sharded_fm_step, impl='pallas'/'auto' dispatches the fused
-    AM kernel per shard. The AM chain is memoryless past the filter window
-    (src/am.cu:21-50) and the envelope cancels the rotor, so the fused
-    sharded form is just halo'd local kernel calls — one ppermute, no
-    gathers."""
+    The AM chain is memoryless past the filter window (src/am.cu:21-50)
+    and the envelope cancels the LO rotor, so each shard runs the bank
+    (dense, or impl='pfb') on its halo'd block: one ppermute, no gathers."""
     t_shards = mesh.shape["time"]
-    c_shards = mesh.shape["channel"]
-    c_cnt = model.num_channels
     nt = model.num_taps
     dec = model.decimation
     fs = int(round(model.sample_rate))
-    kernel_host = model._tap_bank()
-    table_host = jnp.asarray(model._lo_table())
+    bank_host, bank_spec, front = _front(model, mesh)
 
-    def body(n0, tail_re, tail_im, kernel, table, rf_re, rf_im):
+    def body(n0, tail_re, tail_im, bank, rf_re, rf_im):
         rf_l = ComplexArray(rf_re, rf_im)
-        tail = ComplexArray(tail_re, tail_im)
-        filt, new_tail = _channelize_local(
-            rf_l, tail, kernel, table, n0, nt, dec, fs)
-        audio = quad_am_demod(filt)
+        buf = left_halo(rf_l, "time", nt - 1,
+                        fill=ComplexArray(tail_re, tail_im))
+        audio = quad_am_demod(front(buf, bank))
+        new_tail = last_shard_tail(rf_l, "time", nt - 1)
         n_total = rf_re.shape[-1] * t_shards
         n0_new = (n0 + jnp.int32(n_total % fs)) % fs
         return n0_new, new_tail.re, new_tail.im, audio
 
     rep = P()
-    chan = P("channel", None)
     mapped = _shmap(
         body, mesh,
-        in_specs=(rep, rep, rep, P("channel", None, None), chan,
-                  P("time"), P("time")),
+        in_specs=(rep, rep, rep, bank_spec, P("time"), P("time")),
         out_specs=(rep, rep, rep, P("channel", "time")),
     )
 
-    c_l = c_cnt // c_shards if c_cnt % c_shards == 0 else None
-
-    use_pfb = model.impl in ("pfb", "pfb_pallas")
-    shifts_am = model._shifts()
-    if use_pfb:
-        from gsdr_tpu.ops.pfb import uniform_grid
-
-        grid = uniform_grid(shifts_am, model.sample_rate,
-                            multiple_of=dec)
-        # uniform_grid(multiple_of=D) lifts k to an lcm with D or returns
-        # None, so D | grid[0] holds whenever grid exists.
-        if grid is None:
-            raise ValueError(
-                "impl='pfb' needs every channel shift on an Fs/K grid "
-                f"with D | K (Fs={model.sample_rate}, D={dec})")
-
-    def _fused_geometry_ok(n):
-        from gsdr_tpu.kernels.fm_chain_pallas import fused_chain_supported
-
-        if c_l is None or n % (t_shards * dec) != 0:
-            return False
-        if use_pfb:
-            return True
-        return fused_chain_supported(dec, nt, n // t_shards // dec, c_l,
-                                     pad_m=True)
-
-    @functools.lru_cache(maxsize=8)
-    def _fused_mapped(n):
-        from gsdr_tpu.kernels.fm_chain_pallas import (
-            am_chain_apply,
-            am_chain_plan,
-            pfb_am_chain_plan,
-        )
-
-        n_l = n // t_shards
-        n_buf_l = n_l + nt - 1
-        if use_pfb:
-            kg, bins = grid
-            plans = [
-                pfb_am_chain_plan(
-                    model.low_pass_taps, dec, n_buf_l,
-                    bins[ci * c_l:(ci + 1) * c_l], kg,
-                    precision=model.precision)
-                for ci in range(c_shards)
-            ]
-        else:
-            plans = [
-                am_chain_plan(kernel_host[2 * ci * c_l:2 * (ci + 1) * c_l],
-                              dec, n_buf_l, precision=model.precision)
-                for ci in range(c_shards)
-            ]
-        plan = plans[0]
-        gh_all = np.stack([p.gh for p in plans])
-        gl_all = np.stack([p.gl for p in plans])
-
-        def body_f(n0, tail_re, tail_im, gh, gl, rf_re, rf_im):
-            rf_l = ComplexArray(rf_re, rf_im)
-            fill = ComplexArray(tail_re, tail_im)
-            ext = left_halo(rf_l, "time", nt - 1, fill=fill)
-            audio = am_chain_apply(plan, ext, gh=gh[0], gl=gl[0])
-            new_tail = last_shard_tail(rf_l, "time", nt - 1)
-            n0_new = (n0 + jnp.int32(n % fs)) % fs
-            return n0_new, new_tail.re, new_tail.im, audio
-
-        sh3 = P("channel", None, None)
-        mapped_f = _shmap(
-            body_f, mesh,
-            in_specs=(rep, rep, rep, sh3, sh3, P("time"), P("time")),
-            out_specs=(rep, rep, rep, P("channel", "time")),
-        )
-        return mapped_f, gh_all, gl_all
-
     def step(state, rf):
         n0, tail = state
-        n = rf.shape[-1]
-        fused_ok = _fused_geometry_ok(n)
-        use_fused = model.impl == "pallas" or use_pfb or (
-            model.impl == "auto" and is_tpu_backend() and fused_ok)
-        if use_fused:
-            if not fused_ok:
-                raise ValueError(
-                    f"impl='pallas' but (D={dec}, T={nt}, N={n}, "
-                    f"mesh={dict(mesh.shape)}) has no fused geometry")
-            mapped_f, gh_all, gl_all = _fused_mapped(n)
-            n0n, tre, tim, audio = mapped_f(
-                n0, tail.re, tail.im, gh_all, gl_all, rf.re, rf.im)
-            return (n0n, ComplexArray(tre, tim)), audio
-        n0n, tre, tim, audio = mapped(n0, tail.re, tail.im, kernel_host,
-                                      table_host, rf.re, rf.im)
+        if rf.shape[-1] % (t_shards * dec) != 0:
+            raise ValueError("N must divide by time_shards * decimation")
+        n0n, tre, tim, audio = mapped(n0, tail.re, tail.im, bank_host,
+                                      rf.re, rf.im)
         return (n0n, ComplexArray(tre, tim)), audio
 
-    return step
+    return jax.jit(step)

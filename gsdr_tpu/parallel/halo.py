@@ -1,10 +1,10 @@
 """Halo exchange along a time-sharded sample axis (use inside shard_map).
 
-The TPU-native form of the reference's overlap contracts: a FIR output
+The sharded form of the reference's overlap contracts: a FIR output
 window straddling a shard boundary needs the neighbor's edge samples —
 exactly what a CUDA thread reads past its output window within one buffer
 (/root/reference/src/fir.cu:44-46). One lax.ppermute moves every boundary's
-halo in a single ICI hop; shards with no neighbor receive zeros (streaming
+halo in a single collective; shards with no neighbor receive zeros (streaming
 zero-prime convention) or a caller-supplied fill (the carried stream tail).
 """
 

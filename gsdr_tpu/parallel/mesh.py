@@ -11,9 +11,13 @@ def make_mesh(channel=1, time=1, devices=None):
 
     ``channel * time`` must equal the device count. On a multi-host pod
     slice, pass ``devices=jax.devices()`` after jax.distributed.initialize;
-    the default uses all local/global devices. Channel sharding is the
-    embarrassingly-parallel axis (prefer it across DCN/hosts); time sharding
-    exchanges (T-1)-sample halos every block (keep it on ICI).
+    the default uses all local/global devices. The mesh follows the
+    algorithm: the GPUs of one host reach each other all to all over
+    NVLink, so any (channel, time) split of them costs the same per byte.
+    Channel sharding communicates nothing per block; time sharding
+    exchanges a (T-1+D)-sample halo and all-gathers the de-emphasis state
+    every block. Across hosts, prefer channel sharding (the network is the
+    slower link).
     """
     devices = jax.devices() if devices is None else list(devices)
     if channel * time != len(devices):

@@ -6,7 +6,7 @@ Modem streams are independent (the reference's 4x pointer-arg kernels,
 them), so the mesh maps cleanly: the channel axis shards streams, the time
 axis shards each stream's symbol sequence — no halos at all (symbol
 decisions are memoryless). What the distributed layer adds is placement +
-the MXU-matmul demod (ops/qpsk256.py) running at full width per chip.
+the matmul demod (ops/qpsk256.py) running at full width per device.
 """
 
 import jax.numpy as jnp
@@ -86,8 +86,7 @@ def make_sharded_qpsk_modem(modem, mesh):
     amp = modem.amplitude
 
     def tx_body(sym):
-        # sign arithmetic, not a 4-entry table gather: tiny-table gathers
-        # lower to per-element dynamic slices on TPU (ops/qpsk.py, 69x).
+        # sign arithmetic, not a 4-entry table gather (ops/qpsk.py)
         out = qpsk_modulate_symbols(sym, amp)
         return out.re, out.im
 

@@ -1,14 +1,14 @@
-"""Multi-host bring-up helpers (DCN + ICI meshes).
+"""Multi-host bring-up helpers.
 
 The reference is single-process/single-GPU; this framework's distributed
 layer is mesh-shape-agnostic (all collectives go through named axes), so
 multi-host operation is strictly a placement concern:
 
-  * call ``initialize()`` once per host process (standard
-    jax.distributed handshake over DCN);
+  * call ``initialize()`` once per host process (the jax.distributed
+    handshake over the network between hosts);
   * build the mesh with hosts on the OUTER (channel) axis — channel
     sharding is communication-free, so host boundaries never carry the
-    per-block ppermute halos, which stay on intra-host ICI.
+    per-block ppermute halos, which stay on the NVLink inside a host.
 
 Everything already tested on the virtual CPU mesh (tests/test_parallel.py)
 runs unchanged on a real pod slice: shard_map in-specs name mesh axes, not
@@ -23,8 +23,10 @@ from jax.sharding import Mesh
 
 
 def initialize(coordinator_address=None, num_processes=None, process_id=None):
-    """jax.distributed.initialize with pass-through defaults (TPU pods
-    auto-discover all three arguments from the metadata environment)."""
+    """jax.distributed.initialize with pass-through arguments. A GPU host
+    with no cluster manager discovers none of them: pass
+    ``coordinator_address`` ('host:port'), ``num_processes`` and
+    ``process_id`` explicitly."""
     kwargs = {}
     if coordinator_address is not None:
         kwargs["coordinator_address"] = coordinator_address
@@ -39,11 +41,10 @@ def make_pod_mesh(channel_per_host=None):
     """('channel', 'time') mesh with host boundaries on the channel axis.
 
     With H hosts of L local devices each: channel = H * c, time = L / c
-    (c = channel_per_host, default 1). Channel sharding crosses DCN freely
-    (zero communication); the time axis — which exchanges (T-1)-sample
-    halos and all-gathers IIR state every block — stays inside each host's
-    ICI domain. This is the layout BASELINE.md's >=85% multi-host scaling
-    target assumes.
+    (c = channel_per_host, default 1). Channel sharding crosses hosts
+    freely (zero communication); the time axis — which exchanges a halo
+    and all-gathers IIR state every block — stays inside each host, on
+    NVLink.
     """
     devs = jax.devices()
     procs = jax.process_count()

@@ -2,7 +2,7 @@
 
 The streaming, multi-channel form of gsdrAmDemod
 (/root/reference/src/am.cu:52-81): fused complex-tap-bank channelize
-(mix + FIR low-pass + decimate in one MXU conv, gsdr_tpu.ops.channelize) ->
+(mix + FIR low-pass + decimate in one conv, gsdr_tpu.ops.channelize) ->
 envelope detector. Same skeleton as the FM channelizer minus the
 discriminator halo (the AM chain has no neighbor-sample dependency,
 src/am.cu:21-50), so state is just (global offset, raw RF tail).
@@ -11,18 +11,11 @@ src/am.cu:21-50), so state is just (global offset, raw RF tail).
 from dataclasses import dataclass
 from typing import Tuple
 
-import jax
 import jax.numpy as jnp
 
-from gsdr_tpu.backend import is_tpu_backend
 from gsdr_tpu.carray import ComplexArray, is_planar
-from gsdr_tpu.ops.channelize import (
-    make_complex_tap_bank,
-    mix_fir_decimate_bank,
-    rotate_bank,
-)
+from gsdr_tpu.ops.channelize import make_complex_tap_bank, mix_fir_decimate_bank
 from gsdr_tpu.ops.quad_demod import quad_am_demod
-from gsdr_tpu.utils.phase import phase_digit_table
 
 
 @dataclass(frozen=True)
@@ -39,16 +32,15 @@ class AmReceiver:
     channel_frequencies: Tuple[float, ...]
     decimation: int
     low_pass_taps: Tuple[float, ...]
-    # 'auto' (fused single-kernel chain on TPU when the shape supports it,
-    # measured 16x the XLA conv path) | 'xla' | 'pallas' | 'pfb' (uniform
-    # Fs/K channel grid with D | K: polyphase-fold + DFT-bank front inside
-    # the fused kernel on TPU, XLA fold+DFT elsewhere; 'pfb_pallas' forces
-    # the kernel — see pipelines/fm_radio.py for the measured win/loss rule)
+    # 'auto' / 'xla': the dense tap bank (XLA) | 'pfb': the XLA polyphase
+    # front (uniform Fs/K channel grid with D | K, ops/pfb.py). No kernel
+    # serves the AM chain.
     impl: str = "auto"
-    # fused-kernel contraction grade: 'bf16x3' (~1e-4 rel, default) |
-    # 'bf16x2' (fast: one fewer MXU pass + bf16 window scratch; signal
-    # quantized to bf16 ~ -54 dB, below RF ADC noise floors) | 'f32' exact
-    precision: str = "bf16x3"
+
+    def __post_init__(self):
+        if self.impl not in ("auto", "xla", "pfb"):
+            raise ValueError(f"AmReceiver: unknown impl {self.impl!r} "
+                             "(expected 'auto', 'xla' or 'pfb')")
 
     @property
     def num_channels(self):
@@ -64,12 +56,15 @@ class AmReceiver:
             for f in self.channel_frequencies
         ]
 
-    def _lo_table(self):
-        return phase_digit_table(self._shifts(), self.sample_rate)
-
     def _tap_bank(self):
         return make_complex_tap_bank(
             self.low_pass_taps, self._shifts(), self.sample_rate)
+
+    def _pfb_grid(self):
+        from gsdr_tpu.ops.pfb import decimating_grid
+
+        return decimating_grid(self._shifts(), self.sample_rate,
+                               self.decimation)
 
     def init(self, first_sample_index=0):
         fs = int(round(self.sample_rate))
@@ -92,86 +87,18 @@ class AmReceiver:
             jnp.concatenate([rf_tail.re, rf.re], axis=-1),
             jnp.concatenate([rf_tail.im, rf.im], axis=-1),
         )
+        if self.impl == "pfb":
+            from gsdr_tpu.ops.pfb import mix_fir_decimate_bank_uniform
 
-        from gsdr_tpu.kernels.fm_chain_pallas import (
-            am_chain_pallas,
-            fused_chain_supported,
-        )
-
-        m_out = (buf.shape[-1] - t) // self.decimation + 1
-        impl = self.impl
-        pfb_plan = None  # validated plan carried into the dispatch below
-        pfb_grid = None
-        if impl == "auto" and is_tpu_backend():
-            # prefer the PFB front where the measured win rule holds AND
-            # the plan is feasible (a silent auto flip must never turn a
-            # previously-working config into an error)
-            from gsdr_tpu.kernels.fm_chain_pallas import pfb_am_chain_plan
-            from gsdr_tpu.ops.pfb import pfb_preferred
-
-            grid = pfb_preferred(self._shifts(), self.sample_rate,
-                                 self.decimation, t)
-            if grid is not None:
-                try:
-                    pfb_plan = pfb_am_chain_plan(
-                        self.low_pass_taps, self.decimation, buf.shape[-1],
-                        grid[1], grid[0], precision=self.precision)
-                    pfb_grid = grid
-                    impl = "pfb"
-                except ValueError:
-                    pass  # infeasible geometry: keep the dense auto path
-        use_pallas = impl == "pallas" or (
-            impl == "auto"
-            and is_tpu_backend()
-            and fused_chain_supported(self.decimation, t, m_out,
-                                      self.num_channels, pad_m=True))
-        if use_pallas:
-            # single fused kernel (windows+dot+envelope; the rotor cancels
-            # under magnitude) — kernels/fm_chain_pallas.am_chain_pallas
-            audio = am_chain_pallas(buf, self._tap_bank(), self.decimation,
-                        precision=self.precision)
-            new_tail = buf[..., buf.shape[-1] - (t - 1):]
-            n0_new = (n0 + jnp.int32(n % fs)) % fs
-            return (n0_new, new_tail), audio
-        if impl in ("pfb", "pfb_pallas"):
-            from gsdr_tpu.ops.pfb import (
-                mix_fir_decimate_bank_uniform,
-                uniform_grid,
-            )
-
-            grid = pfb_grid if pfb_grid is not None else uniform_grid(
-                self._shifts(), self.sample_rate,
-                multiple_of=self.decimation)
-            # uniform_grid(multiple_of=D) lifts k to an lcm with D or
-            # returns None, so D | grid[0] holds whenever grid exists.
-            if grid is None:
-                raise ValueError(
-                    "impl='pfb' needs every channel shift on an Fs/K grid "
-                    f"with D | K (Fs={self.sample_rate}, "
-                    f"D={self.decimation})")
-            if impl == "pfb_pallas" or is_tpu_backend():
-                from gsdr_tpu.kernels.fm_chain_pallas import (
-                    am_chain_apply,
-                    pfb_am_chain_plan,
-                )
-
-                if pfb_plan is None:  # auto already built + validated one
-                    pfb_plan = pfb_am_chain_plan(
-                        self.low_pass_taps, self.decimation, buf.shape[-1],
-                        grid[1], grid[0], precision=self.precision)
-                audio = am_chain_apply(pfb_plan, buf)
-                new_tail = buf[..., buf.shape[-1] - (t - 1):]
-                n0_new = (n0 + jnp.int32(n % fs)) % fs
-                return (n0_new, new_tail), audio
+            k_grid, bins = self._pfb_grid()
             y = mix_fir_decimate_bank_uniform(
-                buf, self.low_pass_taps, grid[1], grid[0], self.decimation)
+                buf, self.low_pass_taps, bins, k_grid, self.decimation)
         else:
             y = mix_fir_decimate_bank(buf, self._tap_bank(), self.decimation)
-        rot0 = (n0 + jnp.int32(fs - (t - 1) % fs)) % fs
-        filt = rotate_bank(y, jnp.asarray(self._lo_table()), rot0,
-                           self.decimation)
         new_tail = buf[..., buf.shape[-1] - (t - 1):]
 
-        audio = quad_am_demod(filt)  # 2*clamp(|.|,0,1)-1, src/am.cu:49
+        # The envelope |y_rot| = |y|: the LO rotor cancels, so the
+        # un-rotated bank output feeds it directly (src/am.cu:49).
+        audio = quad_am_demod(y)
         n0_new = (n0 + jnp.int32(n % fs)) % fs
         return (n0_new, new_tail), audio

@@ -7,8 +7,8 @@ quadrature discriminator — extended the way its dead 4-channel kernel
 k_Fm4x intended (src/fm.cu:71-179, never launched): instead of 4 hand-written
 LO/accumulator copies, the channel bank is a complex-tap conv
 (gsdr_tpu.ops.channelize) that computes ALL channels' mix+FIR+decimate as a
-single MXU matmul-shaped convolution over the raw RF block, with the LO
-reduced to one phasor per decimated output. Added on top: IIR de-emphasis
+single convolution over the raw RF block; the discriminator needs only one
+constant phasor per channel in place of the LO. Added on top: IIR de-emphasis
 per channel (the reference ships IIR but never wires it into the chain) and
 an explicit streaming-state pytree (replacing the caller-managed
 overlap/phase contracts, include/gsdr/fm.h:26).
@@ -18,18 +18,19 @@ import math
 from dataclasses import dataclass
 from typing import Tuple
 
-import jax
+import numpy as np
+
 import jax.numpy as jnp
 
-from gsdr_tpu.backend import is_tpu_backend
 from gsdr_tpu.carray import ComplexArray, is_planar
 from gsdr_tpu.ops.channelize import (
+    discriminator_carry,
+    discriminator_prev,
+    fm_discriminate_bank,
     make_complex_tap_bank,
     mix_fir_decimate_bank,
-    rotate_bank,
 )
 from gsdr_tpu.ops.iir import iir_block
-from gsdr_tpu.ops.quad_demod import quad_fm_demod
 from gsdr_tpu.utils.phase import phase_digit_table
 
 _TWO_PI = 6.283185307179586
@@ -44,7 +45,12 @@ def fm_deemphasis_coeffs(tau_seconds, sample_rate):
     tan() flips sign and the mapped pole leaves the unit circle, i.e.
     the discrete filter is UNSTABLE (hit in round 5 at a 4-kHz audio
     rate with the US 75-us tau: outputs diverge to ~1e21). The validity
-    condition is tau > 1/(pi * audio_rate)."""
+    condition is tau > 1/(pi * audio_rate). A tau <= 0 has no filter
+    behind it (zero divides by zero; a negative tau puts the pole outside
+    the unit circle) and raises too."""
+    if not float(tau_seconds) > 0.0:
+        raise ValueError(
+            f"de-emphasis tau must be positive, got {tau_seconds}")
     arg = 1.0 / (2.0 * float(tau_seconds) * float(sample_rate))
     if arg >= math.pi / 2.0:
         raise ValueError(
@@ -87,28 +93,18 @@ class FmChannelizer:
     decimation: int
     low_pass_taps: Tuple[float, ...]
     deemphasis_tau: float = 75e-6
-    # 'auto' (fused single-kernel chain on TPU when the shape supports it)
-    # | 'xla' | 'pallas' | 'pfb' (uniform-grid polyphase front-end —
-    # fused PFB kernel on TPU, XLA fold+DFT elsewhere; 'pfb_pallas'
-    # forces the fused PFB kernel, interpret off-TPU). 'pfb' requires
-    # every channel shift on an Fs/K grid with D | K, and WINS when the
-    # prototype filter is long relative to the grid and decimation is
-    # near-critical (measured rule: Q = T/K >= 4 and P = K/D <= 8 — e.g.
-    # the 64-channel critical 512-tap wideband receiver measures 64-96 us
-    # vs the dense kernel's 117-123 at 2^20, and the P=8 oversampled
-    # class 446-542 vs 743-750); P >= 16 oversampling stays faster on
-    # the dense Toeplitz kernel (BASELINE.md round-4/5 PFB design-space
-    # tables).
+    # 'auto': the fused kernel (kernels/fm_chain_triton.py) on a GPU when
+    # it supports the shape, else the XLA chain | 'xla' | 'pallas': the
+    # fused kernel, or ValueError where it cannot run | 'pfb': the XLA
+    # polyphase front (uniform Fs/K channel grid with D | K, ops/pfb.py)
     impl: str = "auto"
-    # fused-kernel contraction grade: 'bf16x3' (default) | 'bf16x2'
-    # (fast: one fewer MXU pass; signal quantized to bf16 ~ -54 dB, below
-    # RF ADC noise floors) | 'f32' (exact contraction). Measured v5e
-    # (16ch/64tap/dec4/2^20, full-lane R=16 geometry): bf16x2 129 us
-    # (8.1 Gsps), bf16x3 151 us (6.9 Gsps), f32 192 us (5.5 Gsps).
-    # bf16x3 and f32 agree with the XLA f32 reference equally (~4e-5:
-    # the floor is the polynomial atan2 ~1e-6 rad and rotor-table
-    # evaluation order, not contraction precision); bf16x2 ~7e-4.
-    precision: str = "bf16x3"
+    # impl='pallas' only: run the kernel in the Pallas interpreter (CPU)
+    interpret: bool = False
+
+    def __post_init__(self):
+        if self.impl not in _IMPLS:
+            raise ValueError(f"FmChannelizer: unknown impl {self.impl!r} "
+                             f"(expected one of {_IMPLS})")
 
     # -- derived (host-side) -------------------------------------------------
     @property
@@ -146,6 +142,23 @@ class FmChannelizer:
     def _deemph(self):
         return fm_deemphasis_coeffs(self.deemphasis_tau, self.audio_rate)
 
+    def _pfb_grid(self):
+        from gsdr_tpu.ops.pfb import decimating_grid
+
+        return decimating_grid(self._shifts(), self.sample_rate,
+                               self.decimation)
+
+    def uses_kernel(self):
+        """True when step() runs the fused kernel (the dispatch rule of
+        gsdr_tpu.backend.use_kernel; raises where impl='pallas' cannot
+        run)."""
+        from gsdr_tpu.backend import use_kernel
+        from gsdr_tpu.kernels.fm_chain_triton import fm_chain_supported
+
+        return use_kernel(
+            self.impl, fm_chain_supported(self.num_taps, self.num_channels),
+            self.interpret, what="fused FM chain kernel")
+
     # -- state ----------------------------------------------------------------
     def init(self, first_sample_index=0):
         c, t = self.num_channels, self.num_taps
@@ -164,145 +177,57 @@ class FmChannelizer:
         n0, rf_tail, disc_carry, deemph_zi = state
         n = rf.shape[-1]
         t = self.num_taps
+        d = self.decimation
         fs = int(round(self.sample_rate))
-        if n % self.decimation != 0:
+        if n % d != 0:
             raise ValueError("block length must be a multiple of decimation")
 
-        # 1+2) fused mix bank + FIR + decimate over the tail-prepended block:
-        # one conv with complex taps, then one phasor per decimated output.
-        # Window j starts at global index n0 - (T-1) + j*D.
+        # Window j of the tail-prepended block starts at global index
+        # n0 - (T-1) + j*D; rot0 is that index for j = 0, mod Fs.
         buf = ComplexArray(
             jnp.concatenate([rf_tail.re, rf.re], axis=-1),
             jnp.concatenate([rf_tail.im, rf.im], axis=-1),
         )
-
-        from gsdr_tpu.kernels.fm_chain_pallas import (
-            fm_chain_pallas,
-            fused_chain_supported,
-        )
-
-        m_out = (buf.shape[-1] - t) // self.decimation + 1
-        fused_ok = fused_chain_supported(self.decimation, t, m_out,
-                                         self.num_channels)
-        impl = self.impl
-        pfb_plan = None  # validated plan carried into the dispatch below
-        pfb_grid = None
-        if impl == "auto" and is_tpu_backend():
-            # prefer the PFB front where the measured win rule holds
-            # (uniform grid, long filter, near-critical decimation) AND
-            # the plan is actually feasible — pfb_preferred's rule does
-            # not know the VMEM budget, and a silent auto flip must never
-            # turn a previously-working config into an error
-            from gsdr_tpu.kernels.fm_chain_pallas import pfb_fm_chain_plan
-            from gsdr_tpu.ops.pfb import pfb_preferred
-
-            grid = pfb_preferred(self._shifts(), self.sample_rate,
-                                 self.decimation, t)
-            if grid is not None:
-                try:
-                    b_, a_ = self._deemph()
-                    pfb_plan = pfb_fm_chain_plan(
-                        self.low_pass_taps, self.decimation, self.gain,
-                        b_, a_, buf.shape[-1], tuple(self._shifts()),
-                        self.sample_rate, grid[1], grid[0],
-                        precision=self.precision)
-                    pfb_grid = grid
-                    impl = "pfb"
-                except ValueError:
-                    pass  # infeasible geometry: keep the dense auto path
-        use_pallas = impl == "pallas" or (
-            impl == "auto" and is_tpu_backend() and fused_ok)
-        if impl == "auto" and is_tpu_backend() and not fused_ok:
-            # Surface the perf cliff: the XLA chain is ~50x slower than
-            # the fused kernel on this hardware (BASELINE.md).
-            import warnings
-            warnings.warn(
-                f"FmChannelizer: shape (D={self.decimation}, T={t}, "
-                f"M={m_out}) cannot run the fused Pallas chain "
-                "(taps exceed the 128-coarse-column halo window); falling "
-                "back to the ~50x slower XLA path.",
-                stacklevel=2)
-        if use_pallas:
-            # single fused Pallas kernel: conv + rotor + discriminator +
-            # de-emphasis, one HBM read and one write; state-compatible
-            # with the unfused path below (kernels/fm_chain_pallas.py).
-            rot0 = (n0 + jnp.int32(fs - (t - 1) % fs)) % fs
-            b_, a_ = self._deemph()
-            audio, new_carry, new_zi = fm_chain_pallas(
-                buf, self._tap_bank(), self._lo_table(), rot0,
-                self.decimation, self.gain, b_, a_,
-                disc_carry, deemph_zi,
-                shifts_hz=tuple(self._shifts()),
-                sample_rate=self.sample_rate,
-                precision=self.precision)
-            new_tail = buf[..., buf.shape[-1] - (t - 1):]
-            n0_new = (n0 + jnp.int32(n % fs)) % fs
-            return (n0_new, new_tail, new_carry, new_zi), audio
-        if impl in ("pfb", "pfb_pallas"):
-            # uniform-grid polyphase front-end: fold + DFT-bank contraction
-            # replaces the dense C*T tap-bank conv (ops/pfb.py). On TPU
-            # (or with impl='pfb_pallas') the WHOLE chain runs as the
-            # PFB-fronted fused kernel — state-compatible with every
-            # other impl (kernels/fm_chain_pallas.pfb_fm_chain_plan).
-            from gsdr_tpu.ops.pfb import (
-                mix_fir_decimate_bank_uniform,
-                uniform_grid,
-            )
-
-            grid = pfb_grid if pfb_grid is not None else uniform_grid(
-                self._shifts(), self.sample_rate,
-                multiple_of=self.decimation)
-            # uniform_grid(multiple_of=D) lifts k to an lcm with D or
-            # returns None, so D | grid[0] holds whenever grid exists.
-            if grid is None:
-                raise ValueError(
-                    "impl='pfb' needs every channel shift on an Fs/K grid "
-                    f"with D | K (shifts={self._shifts()[:4]}..., "
-                    f"Fs={self.sample_rate}, D={self.decimation})")
-            if impl == "pfb_pallas" or is_tpu_backend():
-                from gsdr_tpu.kernels.fm_chain_pallas import (
-                    fm_chain_apply,
-                    pfb_fm_chain_plan,
-                )
-
-                rot0 = (n0 + jnp.int32(fs - (t - 1) % fs)) % fs
-                if pfb_plan is None:  # auto already built + validated one
-                    b_, a_ = self._deemph()
-                    pfb_plan = pfb_fm_chain_plan(
-                        self.low_pass_taps, self.decimation, self.gain,
-                        b_, a_, buf.shape[-1], tuple(self._shifts()),
-                        self.sample_rate, grid[1], grid[0],
-                        precision=self.precision)
-                audio, new_carry, new_zi = fm_chain_apply(
-                    pfb_plan, buf, self._lo_table(), rot0,
-                    disc_carry, deemph_zi)
-                new_tail = buf[..., buf.shape[-1] - (t - 1):]
-                n0_new = (n0 + jnp.int32(n % fs)) % fs
-                return (n0_new, new_tail, new_carry, new_zi), audio
-            y = mix_fir_decimate_bank_uniform(
-                buf, self.low_pass_taps, grid[1], grid[0], self.decimation)
-        else:
-            y = mix_fir_decimate_bank(buf, self._tap_bank(), self.decimation)
-        rot0 = (n0 + jnp.int32(fs - (t - 1) % fs)) % fs
-        filt = rotate_bank(y, jnp.asarray(self._lo_table()), rot0,
-                           self.decimation)  # (C, N/D)
         new_tail = buf[..., buf.shape[-1] - (t - 1):]
+        n0_new = (n0 + jnp.int32(n % fs)) % fs
+        rot0 = (n0 + jnp.int32(fs - (t - 1) % fs)) % fs
+        rot0_next = (n0_new + jnp.int32(fs - (t - 1) % fs)) % fs
+        table = self._lo_table()
+        b, a = self._deemph()
 
-        # 3) discriminator with one-sample carried halo (the warp-shuffle
-        # +1-sample contract, src/fm.cu:58-64, as functional state).
-        disc_in = ComplexArray(
-            jnp.concatenate([disc_carry.re, filt.re], axis=-1),
-            jnp.concatenate([disc_carry.im, filt.im], axis=-1),
-        )
-        demod = quad_fm_demod(disc_in, self.gain)  # (C, N/D)
-        new_carry = disc_in[..., disc_in.shape[-1] - 1:]
+        if self.uses_kernel():
+            # one fused kernel: bank, discriminator and de-emphasis
+            from gsdr_tpu.kernels.fm_chain_triton import fm_chain
+
+            audio, y_last, new_zi = fm_chain(
+                buf, self._tap_bank(), table, rot0, d, self.gain, b, a,
+                disc_carry, deemph_zi, interpret=self.interpret)
+            new_carry = discriminator_carry(y_last, table, rot0_next, d)
+            return (n0_new, new_tail, new_carry, new_zi), audio
+
+        # 1+2) mix bank + FIR + decimate, un-rotated (C, N/D)
+        if self.impl == "pfb":
+            from gsdr_tpu.ops.pfb import mix_fir_decimate_bank_uniform
+
+            k_grid, bins = self._pfb_grid()
+            y = mix_fir_decimate_bank_uniform(
+                buf, self.low_pass_taps, bins, k_grid, d)
+        else:
+            y = mix_fir_decimate_bank(buf, self._tap_bank(), d)
+
+        # 3) discriminator with the one-sample carried halo (the
+        # warp-shuffle +1-sample contract, src/fm.cu:58-64, as state)
+        prev = discriminator_prev(disc_carry, table, rot0, d)
+        demod = fm_discriminate_bank(y, prev, table, d, self.gain)
+        new_carry = discriminator_carry(y[..., y.shape[-1] - 1:], table,
+                                        rot0_next, d)
 
         # 4) de-emphasis IIR, exact blocked scan with carried state.
-        (b, a) = self._deemph()
         audio, new_zi = iir_block(
-            jnp.asarray(b, jnp.float32), jnp.asarray(a, jnp.float32),
+            np.asarray(b, np.float32), np.asarray(a, np.float32),
             demod, zi=deemph_zi, block_len=256,
         )
-
-        n0_new = (n0 + jnp.int32(n % fs)) % fs
         return (n0_new, new_tail, new_carry, new_zi), audio
+
+
+_IMPLS = ("auto", "xla", "pallas", "pfb")

@@ -34,7 +34,7 @@ from gsdr_tpu.ops.qpsk256 import (
 @dataclass(frozen=True)
 class QpskModem:
     """4-ary PSK modem. tx: packed bytes -> planar symbols; rx: symbols ->
-    packed int32 bytes (TPU path carries bytes as int32)."""
+    packed int32 bytes (the planar path carries bytes as int32)."""
 
     amplitude: float = 1.0
 
@@ -63,7 +63,7 @@ class Qpsk256Modem:
 
     The constellation is an ordinary array built once host-side (vs the
     reference's device init kernel + __constant__ upload,
-    src/qpsk256.cu:262-295); demod is the MXU-matmul nearest-neighbor
+    src/qpsk256.cu:262-295); demod is the matmul nearest-neighbor
     (gsdr_tpu.ops.qpsk256)."""
 
     constellation_type: int = RECTANGULAR

@@ -16,6 +16,7 @@ import numpy as np
 from gsdr_tpu.pipelines import FmChannelizer
 from gsdr_tpu.runtime import IqFileSource, StreamRunner
 from gsdr_tpu.utils.checkpoint import load_state, save_state
+from gsdr_tpu.utils.compile_cache import enable_compile_cache
 
 
 def design_lowpass(num_taps, cutoff_frac):
@@ -50,6 +51,7 @@ def main(argv=None):
     p.add_argument("--save-state", default=None)
     p.add_argument("--load-state", default=None)
     args = p.parse_args(argv)
+    enable_compile_cache()
 
     chans = tuple(float(c) for c in args.channels.split(","))
     cutoff = args.cutoff if args.cutoff is not None else 0.4 / args.decim

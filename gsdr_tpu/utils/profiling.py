@@ -6,9 +6,8 @@ vestigial commented-out printf hooks). Here:
   * ``trace(path)`` — context manager around jax.profiler for TensorBoard
     traces of jitted pipelines;
   * ``throughput_report(step, state, block, ...)`` — samples-per-second
-    measurement built on the trustworthy scan-in-jit timer
-    (gsdr_tpu.utils.timing) with a structured dict result, suitable for
-    regression tracking.
+    measurement built on gsdr_tpu.utils.timing, with a structured dict
+    result naming the device it ran on.
 """
 
 import contextlib
@@ -29,27 +28,16 @@ def trace(log_dir):
 
 
 def throughput_report(step, state, block, samples_per_step, iters=10,
-                      label="", strict=True):
-    """Measure a streaming step; returns a structured result dict.
-
-    strict=False reports a dispatch-inclusive throughput FLOOR (flagged
-    ``timing_resolved: False``) instead of raising when the workload is
-    too small to rise above dispatch-overhead noise at this iteration
-    count — for smoke runs; regression tracking should stay strict."""
-    try:
-        sec = time_step(step, state, block, iters=iters)
-        resolved = True
-    except RuntimeError:
-        if strict:
-            raise
-        sec = time_step(step, state, block, iters=iters, strict=False)
-        resolved = False
+                      label=""):
+    """Measure a streaming step; returns a structured result dict."""
+    sec = time_step(step, state, block, iters=iters)
+    dev = jax.devices()[0]
     return {
         "label": label,
         "seconds_per_step": sec,
         "samples_per_second": samples_per_step / sec,
         "msamples_per_second": samples_per_step / sec / 1e6,
-        "backend": jax.default_backend(),
+        "device": {"platform": dev.platform, "kind": dev.device_kind,
+                   "count": len(jax.devices())},
         "iters": iters,
-        "timing_resolved": resolved,
     }

@@ -2,7 +2,7 @@
  *
  * The reference library's native layer is a CUDA C ABI + launch harness
  * (/root/reference/include/gsdr/gsdr.h, src/cuComplexOperatorOverloads.cuh
- * :74-93). In the TPU framework the device math lives in XLA/Pallas; the
+ * :74-93). In this framework the device math lives in XLA/Pallas; the
  * native layer instead owns what a production SDR deployment needs on the
  * host CPU, off the Python GIL:
  *

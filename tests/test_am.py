@@ -77,14 +77,21 @@ def test_edge_sizes(n):
     np.testing.assert_allclose(out, expected, atol=3e-4)
 
 
-def test_fused_impl_matches_xla_chain():
-    """Round-3: impl='pallas' routes the op through the fused
-    windows+dot+envelope kernel (interpret on CPU)."""
+@pytest.mark.parametrize("impl", ["pallas", "pfb_pallas"])
+def test_removed_impl_raises(impl):
+    """No kernel serves AM: a kernel impl is an error, not a silent XLA
+    run."""
+    taps = lowpass_taps(64, 0.05)
+    x = _am_signal(512, fc=120_000.0)
+    with pytest.raises(ValueError, match="unknown impl"):
+        am_demod(x, taps, FS, 0.0, 120_000.0, decimation=4, impl=impl)
+
+
+def test_auto_equals_xla():
     taps = lowpass_taps(64, 0.05)
     x = _am_signal(5000, fc=120_000.0, n0=777)
     out_x = np.asarray(am_demod(x, taps, FS, 0.0, 120_000.0, decimation=4,
                                 first_sample_index=777, impl="xla"))
-    out_p = np.asarray(am_demod(x, taps, FS, 0.0, 120_000.0, decimation=4,
-                                first_sample_index=777, impl="pallas"))
-    assert out_p.shape == out_x.shape
-    np.testing.assert_allclose(out_p, out_x, atol=2e-4)
+    out_a = np.asarray(am_demod(x, taps, FS, 0.0, 120_000.0, decimation=4,
+                                first_sample_index=777))
+    np.testing.assert_array_equal(out_a, out_x)

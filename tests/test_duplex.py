@@ -1,4 +1,4 @@
-"""Wideband TX -> AWGN channel -> RX duplex loopback (round 5, VERDICT #6).
+"""Wideband TX -> AWGN channel -> RX duplex loopback.
 
 End-to-end composition of the PFB SYNTHESIS bank (transmit combiner,
 ops/pfb.pfb_synthesize) against the uniform-grid FM channelizer: K FM
@@ -104,8 +104,8 @@ def test_qpsk_transmux_error_free_at_25db():
     sers, evms, tot = run_transmux(16, 2048, snr_db=25.0)
     assert tot > 30_000
     assert sers.max() == 0.0, sers
-    # ~0.24 EVM = the critical cascade's structural full-rate ISI
-    # (packing bound, BASELINE round 5) — well inside QPSK's 0.707
+    # ~0.24 EVM = the critical cascade's structural full-rate ISI (the
+    # Nyquist packing bound) — well inside QPSK's 0.707
     # decision margin, hence error-free
     assert evms.max() < 0.3, evms
 

@@ -101,19 +101,24 @@ def test_multi_channel_batch():
     np.testing.assert_allclose(outs[0], ref0, atol=2e-2)
 
 
-def test_fused_impl_matches_xla_chain():
-    """Round-3: impl='pallas' routes the op through the fused single-kernel
-    chain with identity de-emphasis (interpret on CPU); output contract
-    (M-1 samples) and values must match the composed XLA chain."""
+@pytest.mark.parametrize("impl", ["pallas", "pfb_pallas"])
+def test_removed_impl_raises(impl):
+    """No kernel serves the one-channel op: a kernel impl is an error,
+    not a silent XLA run (the fused kernel serves FmChannelizer)."""
+    taps = lowpass_taps(64, 0.03)
+    x = _fm_signal(512, fc=100_000.0, f_mod=1_500.0, deviation=5_000.0)
+    with pytest.raises(ValueError, match="unknown impl"):
+        fm_demod(x, taps, FS, 0.0, 100_000.0, 5_000.0, decimation=4,
+                 impl=impl)
+
+
+def test_auto_equals_xla():
     taps = lowpass_taps(64, 0.03)
     x = _fm_signal(5000, fc=100_000.0, f_mod=1_500.0, deviation=5_000.0,
                    n0=12_345)
     out_x = np.asarray(fm_demod(x, taps, FS, 0.0, 100_000.0, 5_000.0,
                                 decimation=4, first_sample_index=12_345,
                                 impl="xla"))
-    out_p = np.asarray(fm_demod(x, taps, FS, 0.0, 100_000.0, 5_000.0,
-                                decimation=4, first_sample_index=12_345,
-                                impl="pallas"))
-    assert out_p.shape == out_x.shape
-    scale = np.max(np.abs(out_x)) + 1e-12
-    assert np.max(np.abs(out_p - out_x)) / scale < 2e-4
+    out_a = np.asarray(fm_demod(x, taps, FS, 0.0, 100_000.0, 5_000.0,
+                                decimation=4, first_sample_index=12_345))
+    np.testing.assert_array_equal(out_a, out_x)

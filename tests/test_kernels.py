@@ -1,916 +1,375 @@
-"""Pallas kernels, validated in interpreter mode on CPU.
+"""The fused FM chain kernel (kernels/fm_chain_triton.py) and the one
+dispatch rule (gsdr_tpu.backend).
 
-Correctness bar: bit-level agreement structure with the XLA tap-bank conv
-(the bf16x3 contraction carries ~1e-4 relative error by design — inside
-the reference CUDA library's f32 test tolerances, SURVEY.md section 4).
+On the CPU the kernel runs in the Pallas interpreter (interpret=True) and
+is held to the float32 XLA chain of pipelines/fm_radio.py, which shares its
+arithmetic (un-rotated bank, constant-phasor discriminator, exact
+de-emphasis), so the two agree to float rounding: 1e-5 of the audio scale
+leaves two orders of margin over the ~1e-6 they reach. The tests marked
+``gpu`` run the compiled kernel and skip without a card (chip_smoke.py runs
+them on the GPU).
 """
 
+import dataclasses as dc
+
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 
+import gsdr_tpu.backend as backend
 from gsdr_tpu.carray import ComplexArray
-from gsdr_tpu.kernels.channelize_pallas import (
-    mix_fir_decimate_bank_pallas,
-    pallas_supported,
-)
-from gsdr_tpu.ops.channelize import make_complex_tap_bank, \
-    mix_fir_decimate_bank
+from gsdr_tpu.kernels import fm_chain_triton as fct
+from gsdr_tpu.pipelines import FmChannelizer
 
-RNG = np.random.default_rng(17)
 FS = 1_000_000.0
+TOL = 1e-5
 
 
-def _planar(n):
-    z = RNG.standard_normal(n) + 1j * RNG.standard_normal(n)
-    return ComplexArray.from_complex(z.astype(np.complex64))
+def _lowpass(nt, cf):
+    n = np.arange(nt) - (nt - 1) / 2.0
+    h = np.sinc(2 * cf * n) * np.hamming(nt)
+    return tuple((h / h.sum()).astype(np.float32).tolist())
 
 
-class TestChannelizePallas:
-    @pytest.mark.parametrize("n,t,d,shifts", [
-        (5000, 64, 4, [12_345.0, -5_000.0, 0.0, 99_000.0]),
-        (4096, 32, 4, [250_000.0]),
-        (9000, 128, 8, [1_000.0, -1_000.0]),
-        (700, 16, 4, [44_100.0, 0.0, 3.0]),
-        # round-2: D in {1, 2} (the old layout required 2D % 8 == 0)
-        (3000, 64, 1, [10_000.0, -7_000.0]),
-        (3000, 32, 2, [50_000.0]),
-        # round-4: T % D != 0 (trailing-zero tap pad, output-identical;
-        # reference accepts any T, include/gsdr/fir.h:30-68)
-        (5000, 65, 4, [12_345.0, -5_000.0]),
-        (3000, 30, 8, [1_000.0]),
-        (2000, 7, 3, [44_100.0, 0.0]),
-    ])
-    def test_matches_xla_conv(self, n, t, d, shifts):
-        assert pallas_supported(d, t)
-        x = _planar(n)
-        taps = RNG.standard_normal(t).astype(np.float32) * 0.2
-        kernel = make_complex_tap_bank(taps, shifts, FS)
-        want = mix_fir_decimate_bank(x, kernel, d)
-        got = mix_fir_decimate_bank_pallas(x, kernel, d, interpret=True)
-        assert got.shape == want.shape
-        scale = np.max(np.abs(want.to_numpy())) + 1e-9
-        err = np.max(np.abs(got.to_numpy() - want.to_numpy())) / scale
-        assert err < 3e-4, err
+def _models(nch=4, decimation=4, nt=64, **kw):
+    """(XLA model, interpreted-kernel model) of one chain."""
+    m = FmChannelizer(
+        sample_rate=FS, tuning_frequency=0.0,
+        channel_frequencies=tuple(
+            100_000.0 + 61_000.0 * i - 400_000.0 * (i % 2)
+            for i in range(nch)),
+        frequency_deviation=75_000.0, decimation=decimation,
+        low_pass_taps=_lowpass(nt, min(0.04, 0.4 / decimation)),
+        impl="xla", **kw)
+    return m, dc.replace(m, impl="pallas", interpret=True)
 
-    @pytest.mark.parametrize("xq_mode", ["flat", "nt"])
-    def test_xq_modes_agree(self, xq_mode):
-        """The two kernel input layouts compute identical windows (the
-        losing t32/tiled modes were dropped in round 3)."""
-        x = _planar(5000)
-        taps = RNG.standard_normal(64).astype(np.float32) * 0.2
-        kernel = make_complex_tap_bank(taps, [12_345.0, -5_000.0], FS)
-        want = mix_fir_decimate_bank(x, kernel, 4)
-        got = mix_fir_decimate_bank_pallas(x, kernel, 4, interpret=True,
-                                           xq_mode=xq_mode)
-        scale = np.max(np.abs(want.to_numpy())) + 1e-9
-        err = np.max(np.abs(got.to_numpy() - want.to_numpy())) / scale
-        assert err < 3e-4, (xq_mode, err)
 
-    def test_unsupported_configs_rejected(self):
-        # round-4: T % D != 0 pads taps and IS supported now
-        assert pallas_supported(3, 64)
-        # round-2 stacked layout: D in {1, 2} ARE supported now
-        assert pallas_supported(2, 64)
-        assert pallas_supported(1, 64)
-        # genuinely unfusable: taps outrun the 128-coarse-column halo
-        assert not pallas_supported(1, 40_000)
-        x = _planar(50_000)
-        kernel = make_complex_tap_bank(np.ones(40_000, np.float32), [0.0],
-                                       FS)
-        with pytest.raises(ValueError):
-            mix_fir_decimate_bank_pallas(x, kernel, 1, interpret=True)
+def _fm_rf(model, n, seed=0):
+    """Real FM carriers on the model's channels: discriminator phase steps
+    stay far from the atan2 +-pi branch cut (white noise puts samples on
+    it, where two correct implementations may differ by 2*pi)."""
+    r = np.random.default_rng(seed)
+    t = np.arange(n) / model.sample_rate
+    sig = np.zeros(n, np.complex128)
+    for k, f in enumerate(model.channel_frequencies):
+        msg = np.sin(2 * np.pi * (700.0 + 400.0 * k) * t + r.uniform(0, 6))
+        sig += (0.5 / len(model.channel_frequencies)) * np.exp(
+            1j * (2 * np.pi * f * t + 0.3 * msg))
+    return ComplexArray.from_complex(sig.astype(np.complex64))
 
-    def test_impl_pallas_dispatch(self):
-        """ops.channelize impl='pallas' routes through the kernel."""
-        x = _planar(2048)
-        taps = RNG.standard_normal(64).astype(np.float32)
-        kernel = make_complex_tap_bank(taps, [10_000.0], FS)
-        a = mix_fir_decimate_bank(x, kernel, 4, impl="xla")
-        # interpret path not reachable through impl; compare pallas
-        # interpret directly for CPU-hermetic testing
-        b = mix_fir_decimate_bank_pallas(x, kernel, 4, interpret=True)
-        scale = np.max(np.abs(a.to_numpy())) + 1e-9
-        assert np.max(np.abs(a.to_numpy() - b.to_numpy())) / scale < 3e-4
+
+def _rel(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return float(np.max(np.abs(a - b)) / (np.max(np.abs(b)) + 1e-12))
+
+
+def _stream(m_x, m_k, rf, blocks, first_sample_index=0):
+    """Run both models over ``blocks`` equal blocks with carried state;
+    return the worst audio error and the two final states."""
+    step_x, step_k = jax.jit(m_x.step), jax.jit(m_k.step)
+    st_x = m_x.init(first_sample_index)
+    st_k = m_k.init(first_sample_index)
+    n = rf.shape[-1] // blocks
+    worst = 0.0
+    for b in range(blocks):
+        part = rf[..., b * n:(b + 1) * n]
+        st_x, y_x = step_x(st_x, part)
+        st_k, y_k = step_k(st_k, part)
+        assert y_k.shape == y_x.shape == (m_x.num_channels,
+                                          n // m_x.decimation)
+        worst = max(worst, _rel(y_k, y_x))
+    return worst, st_x, st_k
+
+
+def _assert_states_close(st_a, st_b, atol=1e-5):
+    assert int(st_a[0]) == int(st_b[0])
+    for a, b in zip(jax.tree.leaves(st_a[1:]), jax.tree.leaves(st_b[1:])):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=atol)
 
 
 class TestFusedFmChain:
-    def _models(self, nch=4, decimation=4, nt=64):
-        from gsdr_tpu.pipelines import FmChannelizer
-
-        def lowpass(nt, cf):
-            n = np.arange(nt) - (nt - 1) / 2.0
-            h = np.sinc(2 * cf * n) * np.hamming(nt)
-            return tuple((h / h.sum()).astype(np.float32).tolist())
-
-        m = FmChannelizer(
-            sample_rate=FS, tuning_frequency=0.0,
-            channel_frequencies=tuple(
-                100_000.0 + 61_000.0 * i for i in range(nch)),
-            frequency_deviation=75_000.0, decimation=decimation,
-            low_pass_taps=lowpass(nt, min(0.04, 0.4 / decimation)),
-        )
-        import dataclasses as dc
-        return m, dc.replace(m, impl="pallas")
-
-    @staticmethod
-    def _fm_rf(model, n, seed=0):
-        """Proper FM carriers on the model's channels: keeps discriminator
-        phase increments well away from the atan2 +-pi branch cut, where
-        two correct implementations may legitimately differ by 2*pi (noise
-        input puts random samples exactly on the cut)."""
-        r = np.random.default_rng(seed)
-        t = np.arange(n) / model.sample_rate
-        sig = np.zeros(n, np.complex128)
-        for k, f in enumerate(model.channel_frequencies):
-            msg = np.sin(2 * np.pi * (700.0 + 400.0 * k) * t + r.uniform(0, 6))
-            phase = 2 * np.pi * f * t + 0.3 * msg
-            sig += (0.5 / len(model.channel_frequencies)) * np.exp(1j * phase)
-        return ComplexArray.from_complex(sig.astype(np.complex64))
-
     def test_matches_unfused_with_state_continuation(self):
-        m_xla, m_pal = self._models()
-        rf = self._fm_rf(m_xla, 8192)
-        st_x, st_p = m_xla.init(), m_pal.init()
-        # skip the zero-primed warmup + de-emphasis settle region in block
-        # 0: the first filtered sample is near-zero there, its phase is
-        # arbitrary, and an atan2 branch flip between two correct
-        # implementations injects a decaying (|a|~0.95) transient.
-        for blk, skip in ((0, 256), (1, 0)):
-            part = rf[..., blk * 4096:(blk + 1) * 4096]
-            st_x, y_x = m_xla.step(st_x, part)
-            st_p, y_p = m_pal.step(st_p, part)
-            y_x, y_p = np.asarray(y_x), np.asarray(y_p)
-            scale = np.max(np.abs(y_x))
-            assert np.max(
-                np.abs(y_x[:, skip:] - y_p[:, skip:])) / scale < 2e-3, blk
-        # state pytrees interchangeable: continue the fused stream with
-        # the unfused step
-        st_mixed = (st_p[0], st_p[1], st_p[2], st_p[3])
-        _, y_cont = m_xla.step(st_mixed, rf[..., :4096])
-        _, y_ref = m_xla.step(st_x, rf[..., :4096])
-        scale = np.max(np.abs(np.asarray(y_ref)))
-        assert np.max(
-            np.abs(np.asarray(y_cont) - np.asarray(y_ref))) / scale < 5e-3
+        m_x, m_k = _models()
+        rf = _fm_rf(m_x, 8192)
+        err, st_x, st_k = _stream(m_x, m_k, rf, 2)
+        assert err < TOL, err
+        _assert_states_close(st_x, st_k)
+        # the state pytrees are interchangeable: continue the kernel's
+        # stream with the XLA step
+        _, y_cont = m_x.step(st_k, rf[..., :4096])
+        _, y_ref = m_x.step(st_x, rf[..., :4096])
+        assert _rel(y_cont, y_ref) < TOL
 
-    def test_fast_precision_grade(self):
-        """precision='bf16x2' on the model config: one fewer MXU pass and
-        a bf16 window scratch; audio within bf16-signal tolerance."""
-        import dataclasses as dc
-        m_xla, m_pal = self._models()
-        m_fast = dc.replace(m_pal, precision="bf16x2")
-        rf = self._fm_rf(m_xla, 4096)
-        _, y_ref = m_xla.step(m_xla.init(), rf)
-        _, y_fast = m_fast.step(m_fast.init(), rf)
-        y_ref, y_fast = np.asarray(y_ref), np.asarray(y_fast)
-        scale = np.max(np.abs(y_ref))
-        assert np.max(np.abs(y_ref[:, 256:] - y_fast[:, 256:])) / scale \
-            < 2e-2
-
-    @pytest.mark.parametrize("nch", [1, 3, 8, 20])
+    @pytest.mark.parametrize("nch", [1, 3, 8, 16, 20])
     def test_channel_count_coverage(self, nch):
-        """Geometry sweep over channel counts (incl. non-multiples of the
-        8-sublane padding): fused output matches the XLA chain. Guards
-        the _pick_r / padding / VMEM-cap interplay, which is shape-
-        dependent."""
-        m_xla, m_pal = self._models(nch=nch)
-        rf = self._fm_rf(m_xla, 8192)
-        _, y_x = m_xla.step(m_xla.init(), rf)
-        _, y_p = m_pal.step(m_pal.init(), rf)
-        y_x, y_p = np.asarray(y_x), np.asarray(y_p)
-        assert y_p.shape == (nch, 2048)
-        scale = np.max(np.abs(y_x))
-        assert np.max(np.abs(y_x[:, 256:] - y_p[:, 256:])) / scale < 2e-3
+        """Channel counts around the padding to 16 and 32 columns."""
+        m_x, m_k = _models(nch=nch)
+        err, _, _ = _stream(m_x, m_k, _fm_rf(m_x, 4096, seed=nch), 1)
+        assert err < TOL, err
 
-    @pytest.mark.parametrize("decimation", [1, 2, 8])
+    @pytest.mark.parametrize("decimation", [1, 2, 4, 8])
     def test_decimation_coverage(self, decimation):
-        """Round-2 gap closure: D in {1, 2} run fused (round 1 required
-        2D % 8 == 0, /root/reference/src/fir.cu:85-93 has a dedicated
-        D == 1 path); D == 8 exercises R == 1-adjacent geometry."""
-        m_xla, m_pal = self._models(nch=4, decimation=decimation)
-        n = 8192
-        rf = self._fm_rf(m_xla, n, seed=decimation)
-        st_x, st_p = m_xla.init(), m_pal.init()
-        for blk, skip in ((0, 512 // decimation + 8), (1, 0)):
-            part = rf[..., blk * (n // 2):(blk + 1) * (n // 2)]
-            st_x, y_x = m_xla.step(st_x, part)
-            st_p, y_p = m_pal.step(st_p, part)
-            y_x, y_p = np.asarray(y_x), np.asarray(y_p)
-            scale = np.max(np.abs(y_x))
-            assert np.max(
-                np.abs(y_x[:, skip:] - y_p[:, skip:])) / scale < 2e-3, \
-                (decimation, blk)
+        m_x, m_k = _models(decimation=decimation, nt=32)
+        rf = _fm_rf(m_x, 4096, seed=decimation)
+        err, st_x, st_k = _stream(m_x, m_k, rf, 2)
+        assert err < TOL, (decimation, err)
+        _assert_states_close(st_x, st_k)
 
-    def test_odd_tap_count_fused(self):
-        """Round-4 gap closure: T % D != 0 runs fused via trailing-zero
-        tap padding (output-identical) with exact streaming-state
-        continuation — the reference accepts any tap count
-        (include/gsdr/fir.h:30-68)."""
-        m_xla, m_pal = self._models(nch=4, decimation=4, nt=65)
-        rf = self._fm_rf(m_xla, 8192)
-        st_x, st_p = m_xla.init(), m_pal.init()
-        for blk, skip in ((0, 256), (1, 0)):
-            part = rf[..., blk * 4096:(blk + 1) * 4096]
-            st_x, y_x = m_xla.step(st_x, part)
-            st_p, y_p = m_pal.step(st_p, part)
-            y_x, y_p = np.asarray(y_x), np.asarray(y_p)
-            scale = np.max(np.abs(y_x))
-            assert np.max(
-                np.abs(y_x[:, skip:] - y_p[:, skip:])) / scale < 2e-3, blk
-
-    def test_ntc_mode_bit_exact(self):
-        """xq_mode='ntc' ([re|im] lane-concat done once in XLA instead of
-        per grid step in VMEM) must be bit-exact vs 'nt' — same G' column
-        order, same windows (round 4; measured a perf wash on HW, kept as
-        the single-operand layout option)."""
-        from gsdr_tpu.kernels import fm_chain_pallas as fcp
-        from gsdr_tpu.ops.channelize import make_complex_tap_bank
-        from gsdr_tpu.utils.phase import phase_digit_table
-
-        t, d = 64, 4
-        n_buf = 131072 + t - 1
-        rng = np.random.default_rng(5)
-        taps = np.hamming(t) / np.hamming(t).sum()
-        shifts = [12_345.0, -5_000.0]
-        bank = make_complex_tap_bank(taps, shifts, FS)
-        buf = ComplexArray(
-            jnp.asarray(rng.standard_normal(n_buf), jnp.float32),
-            jnp.asarray(rng.standard_normal(n_buf), jnp.float32))
-        lo = phase_digit_table(shifts, FS)
-        cf = ComplexArray(jnp.zeros((2, 1), jnp.float32),
-                          jnp.zeros((2, 1), jnp.float32))
-        outs = {}
-        for mode in ("nt", "ntc"):
-            plan = fcp.fm_chain_plan(bank, d, 1.0, (1.0, 0.4), (1.0, -0.5),
-                                     n_buf, shifts, FS, xq_mode=mode,
-                                     _force_bn=1024)
-            au, f, z = fcp.fm_chain_apply(
-                plan, buf, lo, jnp.asarray(0, jnp.int32), cf,
-                jnp.zeros((2, 1), jnp.float32))
-            outs[mode] = (np.asarray(au), np.asarray(f.re), np.asarray(z))
-        for a, b in zip(outs["nt"], outs["ntc"]):
-            assert np.array_equal(a, b)
-
-    def test_n_sub_split_parity(self):
-        """The intra-step overlap split (n_sub sub-blocks, all window dots
-        issued before any VPU stage) must be numerically inert: exported
-        streaming carries EXACT vs n_sub=1 (same association), audio
-        within 1 ulp (the de-emphasis lane scan re-associates at sub
-        boundaries). Covers a pad-and-mask (non-grid-aligned) length, a
-        second streaming step from the carried state, and a multi-grid-
-        step geometry. Uses _force_bn: at test-sized inputs the block
-        chooser caps bn at 128, which silently demotes every n_sub>1 to 1
-        (a committed earlier version of this test was vacuous that way —
-        assert plan.n_sub to prove the split actually ran)."""
-        from gsdr_tpu.kernels import fm_chain_pallas as fcp
-        from gsdr_tpu.ops.channelize import make_complex_tap_bank
-        from gsdr_tpu.ops.fm import fm_demod_gain
-        from gsdr_tpu.pipelines.fm_radio import fm_deemphasis_coeffs
-        from gsdr_tpu.utils.phase import phase_digit_table
-
-        t, d, c = 32, 4, 4
-        n_buf = 6000 * d + t - 1   # m=6000: pads and masks to the grid
-        rng = np.random.default_rng(0)
-        taps = (np.hamming(t) / np.hamming(t).sum()).astype(np.float64)
-        shifts = [1000.0 * (k + 1) for k in range(c)]
-        bank = make_complex_tap_bank(taps, shifts, FS)
-        lo = phase_digit_table(shifts, FS)
-        gain = fm_demod_gain(FS, 75000.0)
-        b, a = fm_deemphasis_coeffs(75e-6, FS / d)
-        buf = ComplexArray(
-            jnp.asarray(rng.standard_normal(n_buf), jnp.float32),
-            jnp.asarray(rng.standard_normal(n_buf), jnp.float32))
-
-        def run(bn, ns):
-            plan = fcp.fm_chain_plan(bank, d, gain, b, a, n_buf, shifts,
-                                     FS, n_sub=ns, _force_bn=bn)
-            assert plan.n_sub == ns and plan.bn == bn, (plan.bn,
-                                                       plan.n_sub)
-            cf = ComplexArray(jnp.zeros((c, 1), jnp.float32),
-                              jnp.zeros((c, 1), jnp.float32))
-            au, f1, z1 = fcp.fm_chain_apply(
-                plan, buf, lo, jnp.asarray(5, jnp.int32), cf,
-                jnp.zeros((c, 1), jnp.float32))
-            au2, _, z2 = fcp.fm_chain_apply(
-                plan, buf, lo,
-                jnp.asarray(5 + n_buf - (t - 1), jnp.int32), f1, z1)
-            return tuple(np.asarray(v) for v in
-                         (au, f1.re, f1.im, z1, au2, z2))
-
-        # bn=512: one padded grid step (n_j=375), subs 2/4 real;
-        # bn=256/ns=2: two grid steps — cross-grid-step carry under split
-        for bn, base_ns, split_ns in ((512, 1, (2, 4)), (256, 1, (2,))):
-            ref = run(bn, base_ns)
-            for ns in split_ns:
-                got = run(bn, ns)
-                errs = [np.max(np.abs(x - y)) for x, y in zip(ref, got)]
-                assert errs[0] < 1e-5 and errs[4] < 1e-5, (bn, ns, errs)
-                assert errs[1] == errs[2] == errs[3] == errs[5] == 0.0, \
-                    (bn, ns, errs)
-
-    def test_r_stack_override_parity(self):
-        """The r_stack geometry override (smaller R shrinks the Toeplitz
-        span K, trading MXU FLOPs against W-build lane width — a tuning
-        knob for MXU-bound channel counts) must compute the same chain:
-        audio within re-association tolerance of the default geometry and
-        carries matching the carried-state contract across a streaming
-        step."""
-        from gsdr_tpu.kernels import fm_chain_pallas as fcp
-        from gsdr_tpu.ops.channelize import make_complex_tap_bank
-        from gsdr_tpu.ops.fm import fm_demod_gain
-        from gsdr_tpu.pipelines.fm_radio import fm_deemphasis_coeffs
-        from gsdr_tpu.utils.phase import phase_digit_table
-
-        t, d, c = 32, 4, 4
-        n_buf = 6000 * d + t - 1
-        rng = np.random.default_rng(1)
-        taps = (np.hamming(t) / np.hamming(t).sum()).astype(np.float64)
-        shifts = [1000.0 * (k + 1) for k in range(c)]
-        bank = make_complex_tap_bank(taps, shifts, FS)
-        lo = phase_digit_table(shifts, FS)
-        gain = fm_demod_gain(FS, 75000.0)
-        b, a = fm_deemphasis_coeffs(75e-6, FS / d)
-        buf = ComplexArray(
-            jnp.asarray(rng.standard_normal(n_buf), jnp.float32),
-            jnp.asarray(rng.standard_normal(n_buf), jnp.float32))
-
-        def run(r):
-            plan = fcp.fm_chain_plan(bank, d, gain, b, a, n_buf, shifts,
-                                     FS, r_stack=r)
-            if r is not None:
-                assert plan.r_stack == r, plan.r_stack
-            cf = ComplexArray(jnp.zeros((c, 1), jnp.float32),
-                              jnp.zeros((c, 1), jnp.float32))
-            au, f1, z1 = fcp.fm_chain_apply(
-                plan, buf, lo, jnp.asarray(5, jnp.int32), cf,
-                jnp.zeros((c, 1), jnp.float32))
-            au2, _, z2 = fcp.fm_chain_apply(
-                plan, buf, lo,
-                jnp.asarray(5 + n_buf - (t - 1), jnp.int32), f1, z1)
-            return tuple(np.asarray(v) for v in
-                         (au, f1.re, f1.im, z1, au2, z2))
-
-        ref = run(None)   # default geometry (R=16 at D=4)
-        for r in (4, 8):
-            got = run(r)
-            errs = [np.max(np.abs(x - y)) for x, y in zip(ref, got)]
-            # different R re-associates the FIR dot and the de-emphasis
-            # (J, r) decomposition — close, not bit-equal
-            assert max(errs) < 5e-5, (r, errs)
-
-        import pytest
-        with pytest.raises(ValueError):
-            fcp.fm_chain_plan(bank, d, gain, b, a, n_buf, shifts, FS,
-                              r_stack=3)
-
-    def test_n_sub_explicit_demotion_warns(self):
-        """An explicit n_sub the chosen bn cannot honor must warn (a
-        silent demotion once made an A/B ladder — and this file's own
-        parity test — measure n_sub=1 against itself)."""
-        import warnings as w
-        from gsdr_tpu.kernels import fm_chain_pallas as fcp
-        from gsdr_tpu.ops.channelize import make_complex_tap_bank
-        bank = make_complex_tap_bank(
-            (np.hamming(32) / np.hamming(32).sum()), [1000.0], FS)
-        with w.catch_warnings(record=True) as rec:
-            w.simplefilter("always")
-            plan = fcp.fm_chain_plan(bank, 4, 2.0, (0.1, 0.1),
-                                     (1.0, -0.8), 4096 + 31, [1000.0],
-                                     FS, n_sub=4)
-        assert plan.n_sub == 1  # bn=128 cannot split lane-aligned
-        assert any("n_sub=4" in str(r.message) for r in rec), \
-            [str(r.message) for r in rec]
+    @pytest.mark.parametrize("nt", [17, 65, 129])
+    def test_odd_tap_count_fused(self, nt):
+        """Tap counts off the 16/64 chunk sizes (zero-padded taps)."""
+        m_x, m_k = _models(nt=nt)
+        rf = _fm_rf(m_x, 8192, seed=nt)
+        err, st_x, st_k = _stream(m_x, m_k, rf, 2)
+        assert err < TOL, err
+        _assert_states_close(st_x, st_k)
 
     def test_nonzero_first_sample_index(self):
-        m_xla, m_pal = self._models(nch=2)
-        rf = self._fm_rf(m_xla, 4096, seed=3)
-        st_x = m_xla.init(first_sample_index=123_456)
-        st_p = m_pal.init(first_sample_index=123_456)
-        _, y_x = m_xla.step(st_x, rf)
-        _, y_p = m_pal.step(st_p, rf)
-        y_x, y_p = np.asarray(y_x), np.asarray(y_p)
-        scale = np.max(np.abs(y_x))
-        # skip warmup/settle (see test above)
-        assert np.max(np.abs(y_x[:, 256:] - y_p[:, 256:])) / scale < 2e-3
+        m_x, m_k = _models(nch=2)
+        err, _, _ = _stream(m_x, m_k, _fm_rf(m_x, 4096, seed=3), 2,
+                            first_sample_index=123_456)
+        assert err < TOL, err
 
+    @pytest.mark.parametrize("n", [1024, 5000, 4096 + 64])
+    def test_pad_and_mask_any_block_length(self, n):
+        """Block lengths that leave the program grid partly empty: the grid
+        starts before output 0 and ends on output M-1."""
+        m_x, m_k = _models(nch=3, nt=32)
+        rf = _fm_rf(m_x, 2 * n, seed=n)
+        err, st_x, st_k = _stream(m_x, m_k, rf, 2)
+        assert err < TOL, err
+        _assert_states_close(st_x, st_k)
 
-class TestPfbFusedChain:
-    """Round-4 PFB front: polyphase fold + DFT-bank dot replacing the
-    Toeplitz window contraction for uniform channel grids, sharing the
-    whole VPU back-end (rotor/disc/de-emphasis, carries, pad-and-mask)
-    with the dense fused kernel."""
+    @pytest.mark.parametrize("block_m,phases", [(16, 2), (16, 5), (32, 16)])
+    def test_program_geometry_is_inert(self, block_m, phases):
+        """Tile rows and phases per program only re-associate the
+        de-emphasis; many small programs exercise the cross-block scan."""
+        m_x, _ = _models(nch=3, nt=32)
+        rf = _fm_rf(m_x, 4096 + 31, seed=block_m + phases)
+        buf = rf
+        bank = m_x._tap_bank()
+        table = m_x._lo_table()
+        b, a = m_x._deemph()
+        car = ComplexArray(jnp.full((3, 1), 0.3), jnp.full((3, 1), -0.2))
+        zi = jnp.full((3, 1), 0.05, jnp.float32)
+        rot0 = jnp.int32(12_345)
 
-    FS = 1_024_000.0
+        def run(**kw):
+            return fct.fm_chain(buf, bank, table, rot0, 4, m_x.gain, b, a,
+                                car, zi, interpret=True, **kw)
 
-    def _model(self, k=16, d=4, t=128, impl="pfb_pallas"):
-        from gsdr_tpu.pipelines import FmChannelizer
+        ref = run()
+        got = run(block_m=block_m, phases=phases)
+        for x, y in zip(jax.tree.leaves(got), jax.tree.leaves(ref)):
+            np.testing.assert_allclose(np.asarray(x), np.asarray(y),
+                                       atol=2e-6)
 
-        def lp(nt, cf):
-            n = np.arange(nt) - (nt - 1) / 2.0
-            h = np.sinc(2 * cf * n) * np.hamming(nt)
-            return tuple((h / h.sum()).astype(np.float32).tolist())
+    def test_identity_deemphasis_is_the_discriminator(self):
+        """b=(1, 0), a=(1, 0): the chain reduces to bank + discriminator,
+        which fm_discriminate_bank computes in XLA."""
+        from gsdr_tpu.ops.channelize import (
+            discriminator_prev,
+            fm_discriminate_bank,
+            mix_fir_decimate_bank,
+        )
 
-        return FmChannelizer(
-            sample_rate=self.FS, tuning_frequency=0.0,
-            channel_frequencies=tuple(-self.FS / 2 + (self.FS / k) * i
-                                      for i in range(k)),
-            frequency_deviation=75_000.0, decimation=d,
-            low_pass_taps=lp(t, 0.4 / k), impl=impl)
+        m_x, _ = _models(nch=2, nt=32)
+        buf = _fm_rf(m_x, 2048 + 31, seed=9)
+        bank, table = m_x._tap_bank(), m_x._lo_table()
+        car = ComplexArray(jnp.full((2, 1), 0.1), jnp.full((2, 1), 0.2))
+        rot0 = jnp.int32(777)
+        audio, y_last, z = fct.fm_chain(
+            buf, bank, table, rot0, 4, m_x.gain, (1.0, 0.0), (1.0, 0.0),
+            car, jnp.zeros((2, 1)), interpret=True)
+        y = mix_fir_decimate_bank(buf, bank, 4)
+        want = fm_discriminate_bank(
+            y, discriminator_prev(car, table, rot0, 4), table, 4, m_x.gain)
+        assert _rel(audio, want) < TOL
+        np.testing.assert_allclose(y_last.to_numpy(), y[..., -1:].to_numpy(),
+                                   atol=1e-6)
+        assert np.all(np.asarray(z) == 0)
 
-    def _rf(self, model, n, seed=0):
-        r = np.random.default_rng(seed)
-        tt = np.arange(n) / model.sample_rate
-        sig = np.zeros(n, np.complex128)
-        for c, f in enumerate(model.channel_frequencies):
-            msg = np.sin(2 * np.pi * (500.0 + 37.0 * c) * tt
-                         + r.uniform(0, 6))
-            sig += 0.03 * np.exp(1j * (2 * np.pi * f * tt + 0.3 * msg))
-        return ComplexArray.from_complex(sig.astype(np.complex64))
+    def test_prev_override_matches_carry(self):
+        """``prev`` (the sharded step's halo sample) in place of the carry."""
+        from gsdr_tpu.ops.channelize import discriminator_prev
 
-    @pytest.mark.parametrize("d,t", [(4, 128), (16, 128), (8, 65)])
-    def test_matches_xla_with_state_continuation(self, d, t):
-        import dataclasses as dc
-
-        m_p = self._model(k=16, d=d, t=t)
-        m_x = dc.replace(m_p, impl="xla")
-        rf = self._rf(m_x, 16384)
-        st_x, st_p = m_x.init(), m_p.init()
-        for blk, skip in ((0, 512 // d + 8), (1, 0)):
-            part = rf[..., blk * 8192:(blk + 1) * 8192]
-            st_x, y_x = m_x.step(st_x, part)
-            st_p, y_p = m_p.step(st_p, part)
-            y_x, y_p = np.asarray(y_x), np.asarray(y_p)
-            scale = np.max(np.abs(y_x))
-            assert np.max(
-                np.abs(y_x[:, skip:] - y_p[:, skip:])) / scale < 2e-3, \
-                (d, t, blk)
-        np.testing.assert_allclose(st_p[2].to_numpy(), st_x[2].to_numpy(),
-                                   atol=5e-5)
-        np.testing.assert_allclose(np.asarray(st_p[3]), np.asarray(st_x[3]),
-                                   atol=5e-5)
-
-    def test_wide_grid_p8_matches_xla(self):
-        """K=64 / D=8 (P=8): the phase count the round-5 win rule newly
-        auto-dispatches, at the wide-grid K the suite never covered
-        (every channel excited — silent-channel discriminator
-        comparisons are ill-posed, CLAUDE.md testing note)."""
-        import dataclasses as dc
-
-        m_p = self._model(k=64, d=8, t=512)
-        m_x = dc.replace(m_p, impl="xla")
-        rf = self._rf(m_x, 16384, seed=5)
-        _, y_x = m_x.step(m_x.init(), rf)
-        _, y_p = m_p.step(m_p.init(), rf)
-        y_x, y_p = np.asarray(y_x), np.asarray(y_p)
-        scale = np.max(np.abs(y_x))
-        skip = 512 // 8 + 192
-        assert np.max(np.abs(y_x[:, skip:] - y_p[:, skip:])) / scale < 2e-3
-
-    def test_k128_grid_matches_xla(self):
-        """K=128 critical (2K = 256-lane DFT bank): the widest grid class,
-        measured 2.7x faster than dense in round 5 — every channel
-        excited, parity vs the XLA chain."""
-        import dataclasses as dc
-
-        m_p = self._model(k=128, d=128, t=1024)
-        m_x = dc.replace(m_p, impl="xla")
-        rf = self._rf(m_x, 32768, seed=9)
-        _, y_x = m_x.step(m_x.init(), rf)
-        _, y_p = m_p.step(m_p.init(), rf)
-        y_x, y_p = np.asarray(y_x), np.asarray(y_p)
-        scale = np.max(np.abs(y_x))
-        skip = 1024 // 128 + 64
-        assert np.max(np.abs(y_x[:, skip:] - y_p[:, skip:])) / scale < 2e-3
-
-    def test_k256_grid_matches_xla(self):
-        """K=256 critical, T=2048 (2K = 512-lane DFT bank): the round-4
-        'T < K loses structurally' verdict applies only to SHORT
-        filters — at production T = 8K the PFB front measured 3.5x
-        faster than dense (round 5). Parity with every channel excited.
-
-        tau=300us: at D=256 the audio rate is Fs/256 = 4 kHz and the
-        US 75-us de-emphasis sits past the bilinear prewarp validity
-        limit tau > 1/(pi*f_audio) ~ 80 us (tan argument > pi/2 -> an
-        unstable pole; BOTH implementations diverge identically-ish).
-        A real 256-channel receiver runs a wider Fs; the kernel
-        geometry under test is independent of tau."""
-        import dataclasses as dc
-
-        m_p = dc.replace(self._model(k=256, d=256, t=2048),
-                         deemphasis_tau=300e-6)
-        m_x = dc.replace(m_p, impl="xla")
-        rf = self._rf(m_x, 65536, seed=11)
-        _, y_x = m_x.step(m_x.init(), rf)
-        _, y_p = m_p.step(m_p.init(), rf)
-        y_x, y_p = np.asarray(y_x), np.asarray(y_p)
-        scale = np.max(np.abs(y_x))
-        skip = 2048 // 256 + 96
-        assert np.max(np.abs(y_x[:, skip:] - y_p[:, skip:])) / scale < 2e-3
-
-    def test_interchangeable_with_dense_fused(self):
-        """The PFB-fronted and Toeplitz-fronted fused kernels share the
-        state pytree: a stream may switch between them mid-flight."""
-        import dataclasses as dc
-
-        m_p = self._model(k=16, d=4, t=128)
-        m_d = dc.replace(m_p, impl="pallas")
-        rf = self._rf(m_p, 8192, seed=3)
-        st = m_p.init()
-        st, _ = m_p.step(st, rf)
-        st, y2 = m_d.step(st, rf)      # dense fused continues the stream
-        st_r = m_p.init()
-        st_r, _ = m_d.step(st_r, rf)
-        st_r, y_ref = m_d.step(st_r, rf)
-        np.testing.assert_allclose(np.asarray(y2), np.asarray(y_ref),
-                                   rtol=2e-3, atol=2e-4)
-
-    def test_n_sub_split_and_pad_mask(self):
-        """Plan-level: the overlap split and a non-grid-aligned M must be
-        numerically inert for the PFB front too (carries exact vs
-        n_sub=1, audio <= 1 ulp re-association)."""
-        from gsdr_tpu.kernels import fm_chain_pallas as fcp
-        from gsdr_tpu.utils.phase import phase_digit_table
-
-        k, d, t, c = 16, 4, 128, 16
-        bins = list(range(c))
-        shifts = [b * self.FS / k for b in bins]
-        n_buf = 100_000 + t - 1          # M=25000: off the P*128 grid
-        rng = np.random.default_rng(7)
-        buf = ComplexArray(
-            jnp.asarray(rng.standard_normal(n_buf), jnp.float32),
-            jnp.asarray(rng.standard_normal(n_buf), jnp.float32))
-        lo = phase_digit_table(shifts, self.FS)
-        cf = ComplexArray(jnp.zeros((c, 1), jnp.float32),
-                          jnp.zeros((c, 1), jnp.float32))
-        outs = {}
-        for ns in (1, 2):
-            plan = fcp.pfb_fm_chain_plan(
-                np.hamming(t) / np.hamming(t).sum(), d, 2.0,
-                (0.3, 0.3), (1.0, -0.4), n_buf, shifts, self.FS, bins, k,
-                n_sub=ns, _force_bn=256)
-            assert plan.n_sub == ns and plan.front == "pfb"
-            au, f2, z2 = fcp.fm_chain_apply(
-                plan, buf, lo, jnp.asarray(11, jnp.int32), cf,
-                jnp.zeros((c, 1), jnp.float32))
-            assert au.shape == (c, 25_000)
-            outs[ns] = (np.asarray(au), np.asarray(f2.re),
-                        np.asarray(f2.im), np.asarray(z2))
-        for a, b in zip(outs[1][1:], outs[2][1:]):
-            assert np.array_equal(a, b)          # carries bit-exact
-        assert np.allclose(outs[1][0], outs[2][0], atol=1e-5)
-
-
-class TestAblateCuts:
-    """Round-5 measurement hooks: ablate='grid' (pure grid/DMA probe —
-    the direct overhead measurement VERDICT #3 asked for) and the PFB
-    front's ablate='dot' (VERDICT #1 stage accounting) must trace and run
-    on both fronts; 'full' must equal the default exactly."""
-
-    FS = 1_024_000.0
-
-    def _apply_args(self, c, t, n_buf, seed=0):
-        from gsdr_tpu.utils.phase import phase_digit_table
-
-        rng = np.random.default_rng(seed)
-        buf = ComplexArray(
-            jnp.asarray(rng.standard_normal(n_buf), jnp.float32),
-            jnp.asarray(rng.standard_normal(n_buf), jnp.float32))
-        shifts = [b * self.FS / 16 for b in range(c)]
-        lo = phase_digit_table(shifts, self.FS)
-        cf = ComplexArray(jnp.zeros((c, 1), jnp.float32),
-                          jnp.zeros((c, 1), jnp.float32))
-        return buf, shifts, lo, cf
-
-    @pytest.mark.parametrize("front", ["toeplitz", "pfb"])
-    def test_cuts_run_and_full_matches_default(self, front):
-        from gsdr_tpu.kernels import fm_chain_pallas as fcp
-
-        c, d = 8, 4
-        t = 128 if front == "pfb" else 32
-        n_buf = 8192 + t - 1
-        buf, shifts, lo, cf = self._apply_args(c, t, n_buf)
-        taps = np.hamming(t) / np.hamming(t).sum()
-        if front == "pfb":
-            plan = fcp.pfb_fm_chain_plan(
-                taps, d, 2.0, (0.3, 0.3), (1.0, -0.4), n_buf, shifts,
-                self.FS, list(range(c)), 16)
-        else:
-            from gsdr_tpu.ops.channelize import make_complex_tap_bank
-
-            plan = fcp.fm_chain_plan(
-                make_complex_tap_bank(taps, shifts, self.FS), d, 2.0,
-                (0.3, 0.3), (1.0, -0.4), n_buf, shifts, self.FS)
-        zi = jnp.zeros((c, 1), jnp.float32)
-        want, f_w, z_w = fcp.fm_chain_apply(
-            plan, buf, lo, jnp.asarray(3, jnp.int32), cf, zi)
-        m = (n_buf - t) // d + 1
-        for ab in ("grid", "dot", "rotor", "disc", "full"):
-            au, f2, z2 = fcp.fm_chain_apply(
-                plan, buf, lo, jnp.asarray(3, jnp.int32), cf, zi,
-                ablate=ab)
-            assert au.shape == (c, m), (front, ab)
-        np.testing.assert_array_equal(np.asarray(au), np.asarray(want))
-        np.testing.assert_array_equal(np.asarray(f2.re), np.asarray(f_w.re))
-        np.testing.assert_array_equal(np.asarray(z2), np.asarray(z_w))
-
-
-class TestFusedChainFuzz:
-    """Randomized geometry sweep (seeded): the fused FM chain must match
-    the XLA chain with exact state continuation across arbitrary
-    (C, T, D, N) combinations — guards the _pick_r / tap-pad / pad-and-
-    mask / VMEM-cap interplay, which is shape-dependent and has bitten
-    at specific shapes twice (rounds 2-3)."""
+        m_x, _ = _models(nch=2, nt=32)
+        buf = _fm_rf(m_x, 2048 + 31, seed=4)
+        bank, table = m_x._tap_bank(), m_x._lo_table()
+        b, a = m_x._deemph()
+        car = ComplexArray(jnp.full((2, 1), 0.4), jnp.full((2, 1), 0.1))
+        rot0 = jnp.int32(99)
+        zi = jnp.zeros((2, 1))
+        one = fct.fm_chain(buf, bank, table, rot0, 4, m_x.gain, b, a, car,
+                           zi, interpret=True)
+        two = fct.fm_chain(buf, bank, table, rot0, 4, m_x.gain, b, a,
+                           ComplexArray.zeros((2, 1)), zi,
+                           prev=discriminator_prev(car, table, rot0, 4),
+                           interpret=True)
+        for x, y in zip(jax.tree.leaves(one), jax.tree.leaves(two)):
+            np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
 
     @pytest.mark.parametrize("seed", range(6))
     def test_random_config_parity(self, seed):
-        from gsdr_tpu.pipelines import FmChannelizer
-
+        """Seeded random (C, T, D, N) against the XLA chain, two carried
+        blocks: the shape-dependent padding and grid interplay."""
         r = np.random.default_rng(100 + seed)
         d = int(r.choice([1, 2, 4, 8, 16]))
         t = int(r.integers(8, 131))
         nch = int(r.integers(1, 12))
         n = d * int(r.integers(192, 1200))
-
-        def lowpass(nt, cf):
-            nn = np.arange(nt) - (nt - 1) / 2.0
-            h = np.sinc(2 * cf * nn) * np.hamming(nt)
-            return tuple((h / h.sum()).astype(np.float32).tolist())
-
-        m = FmChannelizer(
+        m_x = FmChannelizer(
             sample_rate=FS, tuning_frequency=0.0,
             channel_frequencies=tuple(
                 30_000.0 + 41_000.0 * i for i in range(nch)),
             frequency_deviation=75_000.0, decimation=d,
-            low_pass_taps=lowpass(t, min(0.04, 0.35 / d)), impl="xla")
-        import dataclasses as dc
-        mp = dc.replace(m, impl="pallas")
-        rf = TestFusedFmChain._fm_rf(m, 2 * n, seed=seed)
-        st_x, st_p = m.init(), mp.init()
-        # block-0 skip: the zero-primed warmup can flip an atan2 branch,
-        # injecting a de-emphasis transient that decays as |a1|^j — skip
-        # until it falls ~4 orders below the signal (pole depends on the
-        # audio rate, so the length is d-dependent)
-        _, (one, a1) = m._deemph()
-        decay = int(np.ceil(np.log(1e4) / -np.log(min(abs(a1), 0.999))))
-        skip0 = min(n // d - 64, t // d + decay + 64)
-        for blk, skip in ((0, skip0), (1, 0)):
-            part = rf[..., blk * n:(blk + 1) * n]
-            st_x, y_x = m.step(st_x, part)
-            st_p, y_p = mp.step(st_p, part)
-            y_x, y_p = np.asarray(y_x), np.asarray(y_p)
-            assert y_p.shape == (nch, n // d)
-            scale = np.max(np.abs(y_x)) + 1e-9
-            assert np.max(
-                np.abs(y_x[:, skip:] - y_p[:, skip:])) / scale < 3e-3, \
-                (seed, d, t, nch, n, blk)
+            low_pass_taps=_lowpass(t, min(0.04, 0.35 / d)), impl="xla")
+        m_k = dc.replace(m_x, impl="pallas", interpret=True)
+        err, st_x, st_k = _stream(m_x, m_k, _fm_rf(m_x, 2 * n, seed=seed), 2)
+        assert err < TOL, (seed, d, t, nch, n, err)
+        _assert_states_close(st_x, st_k)
+
+    def test_tap_matrices_reproduce_the_bank(self):
+        """The kernel's (2*tp, cp) tap matrices contract a window to the
+        same outputs as the XLA conv bank."""
+        from gsdr_tpu.ops.channelize import mix_fir_decimate_bank
+
+        m_x, _ = _models(nch=3, nt=40)
+        bank = m_x._tap_bank()
+        cp, kc, tp = fct._geometry(40, 3)
+        gre, gim = fct._tap_matrices(bank, cp, tp)
+        x = _fm_rf(m_x, 40, seed=2)
+        w = jnp.concatenate([jnp.pad(x.re, (0, tp - 40)),
+                             jnp.pad(x.im, (0, tp - 40))])
+        want = mix_fir_decimate_bank(x, bank, 4)
+        np.testing.assert_allclose(np.asarray(w @ gre)[:3],
+                                   want.re[:, 0], atol=1e-6)
+        np.testing.assert_allclose(np.asarray(w @ gim)[:3],
+                                   want.im[:, 0], atol=1e-6)
+        assert np.all(np.asarray(gre)[:, 3:] == 0)
+
+    def test_row_tables_match_the_recurrence(self):
+        """Row-start matrix and block-end weights against the first-order
+        recurrence run row by row."""
+        pole, block_m, phases = 0.9, 8, 3
+        lmat, rowpow = fct._row_tables(pole, block_m, phases)
+        e = np.random.default_rng(0).standard_normal(block_m)
+        z, starts = 0.0, []
+        for i in range(block_m):
+            starts.append(z)
+            z = z * pole ** phases + e[i]
+        np.testing.assert_allclose(lmat @ e, starts, atol=1e-6)
+        np.testing.assert_allclose(rowpow @ e, z, atol=1e-6)
+
+    @pytest.mark.parametrize("t,c", [(513, 4), (64, 65), (128, 64)])
+    def test_unsupported_shapes_rejected(self, t, c):
+        assert not fct.fm_chain_supported(t, c)
+        bank = np.zeros((2 * c, 2, t), np.float32)
+        with pytest.raises(ValueError):
+            fct.fm_chain(ComplexArray.zeros((4 * t,)), bank,
+                         np.zeros((c, 4), np.float32), jnp.int32(0), 4, 1.0,
+                         (1.0, 0.0), (1.0, 0.0), ComplexArray.zeros((c, 1)),
+                         jnp.zeros((c, 1)), interpret=True)
+
+    # (T, C, stages, bytes): shared memory the H100 reported for kernels
+    # that did not fit (RESOURCE_EXHAUSTED, "requested <bytes>")
+    @pytest.mark.parametrize("t,c,stages,nbytes", [
+        (96, 32, 3, 270336), (128, 64, 3, 409600), (192, 16, 3, 299008),
+        (256, 32, 3, 532480), (512, 64, 3, 1589248), (128, 64, 2, 344064),
+        (256, 16, 2, 266240), (128, 64, 1, 278528), (256, 64, 1, 540672)])
+    def test_smem_model_matches_the_h100(self, t, c, stages, nbytes):
+        assert fct._smem_bytes(t, c, stages) == nbytes
+
+    # shapes that compiled and ran on an H100 (True) or could not (False)
+    @pytest.mark.parametrize("t,c,ok", [
+        (64, 16, True), (64, 64, True), (128, 32, True), (256, 16, True),
+        (128, 64, False), (256, 32, False)])
+    def test_supported_means_it_fits(self, t, c, ok):
+        assert fct.fm_chain_supported(t, c) is ok
+
+    @pytest.mark.parametrize("t,c,stages", [
+        (32, 16, 3), (64, 16, 3), (64, 32, 2), (64, 64, 1), (128, 16, 1)])
+    def test_stage_choice_keeps_two_programs_per_sm(self, t, c, stages):
+        """At these shapes the rule's pick was within 3.3 % of the fastest
+        stage count measured on an H100 (700 W)."""
+        assert fct._num_stages(t, c) == stages
+        if stages > 1:
+            assert fct._smem_bytes(t, c, stages) <= fct._SMEM_PER_BLOCK // 2
 
 
-class TestPfbChainFuzz:
-    """Seeded random ON-GRID geometry sweep for the PFB-fronted fused FM
-    chain (the dense fuzz above cannot reach this front): random
-    (K, D | K, Q, C) with every channel excited, pfb_pallas vs the XLA
-    chain with exact state continuation — guards the fold/roll span,
-    DFT-bank slicing, phasor tables and pad-and-mask interplay across
-    the round-5-extended dispatch region (P up to 8, odd Q, C < K)."""
+class TestDispatchRule:
+    """gsdr_tpu.backend.use_kernel: one rule, no silent fallback."""
 
-    @pytest.mark.parametrize("seed", range(4))
-    def test_random_grid_parity(self, seed):
-        import dataclasses as dc
+    @pytest.mark.parametrize("impl", ["pfb_pallas", "mosaic", ""])
+    def test_removed_impl_raises(self, impl):
+        with pytest.raises(ValueError, match="unknown impl"):
+            dc.replace(_models()[0], impl=impl)
 
-        from gsdr_tpu.pipelines import FmChannelizer
+    def test_kernel_impl_on_cpu_without_interpret_raises(self):
+        m_x, _ = _models()
+        m = dc.replace(m_x, impl="pallas")
+        with pytest.raises(ValueError, match="interpret"):
+            m.uses_kernel()
+        with pytest.raises(ValueError, match="interpret"):
+            m.step(m.init(), ComplexArray.zeros((1024,)))
 
-        r = np.random.default_rng(500 + seed)
-        k = int(r.choice([8, 16, 32, 64]))
-        p = int(r.choice([1, 2, 4, 8]))
-        if k // p < 1 or k % p != 0:
-            p = 1
-        d = k // p
-        q = int(r.integers(4, 10))
-        t = q * k - int(r.integers(0, k // 2))   # ragged fold tail too
-        nch = int(r.integers(max(1, k // 2), k + 1))  # C >= K/2 (rule)
-        fs = 1_024_000.0
-        n = d * int(r.integers(600, 1600))
+    def test_auto_on_cpu_never_picks_a_kernel(self):
+        m_x, _ = _models()
+        for m in (dc.replace(m_x, impl="auto"),
+                  dc.replace(m_x, impl="auto", interpret=True)):
+            assert not m.uses_kernel()
+        assert not backend.use_kernel("auto", True, interpret=True)
 
-        def lowpass(nt, cf):
-            nn = np.arange(nt) - (nt - 1) / 2.0
-            h = np.sinc(2 * cf * nn) * np.hamming(nt)
-            return tuple((h / h.sum()).astype(np.float32).tolist())
+    def test_auto_on_gpu_picks_kernel_when_supported(self, monkeypatch):
+        monkeypatch.setattr(backend, "gpu_kernels_available", lambda: True)
+        m_x, _ = _models()
+        assert dc.replace(m_x, impl="auto").uses_kernel()
+        assert dc.replace(m_x, impl="pallas").uses_kernel()
+        assert not m_x.uses_kernel()                         # impl='xla'
+        wide = dc.replace(m_x, impl="auto",
+                          low_pass_taps=_lowpass(513, 0.01))
+        assert not wide.uses_kernel()
 
+    def test_unsupported_shape_with_kernel_impl_raises(self, monkeypatch):
+        monkeypatch.setattr(backend, "gpu_kernels_available", lambda: True)
+        m_x, _ = _models()
+        wide = dc.replace(m_x, impl="pallas",
+                          low_pass_taps=_lowpass(513, 0.01))
+        with pytest.raises(ValueError, match="shape"):
+            wide.uses_kernel()
+
+    def test_pfb_never_runs_the_kernel(self, monkeypatch):
+        """impl='pfb' is the XLA polyphase front, on any backend."""
+        monkeypatch.setattr(backend, "gpu_kernels_available", lambda: True)
+        fs, k = 1_024_000.0, 16
         m = FmChannelizer(
             sample_rate=fs, tuning_frequency=0.0,
-            channel_frequencies=tuple(
-                -fs / 2 + (fs / k) * i for i in range(nch)),
-            frequency_deviation=75_000.0, decimation=d,
-            low_pass_taps=lowpass(t, 0.4 / k), impl="xla")
-        mp = dc.replace(m, impl="pfb_pallas")
-        # every channel excited (silent-channel discriminator comparisons
-        # are ill-posed — CLAUDE.md testing note / round-5 incident)
-        tt = np.arange(2 * n) / fs
-        sig = np.zeros(2 * n, np.complex128)
-        for c, f in enumerate(m.channel_frequencies):
-            msg = np.sin(2 * np.pi * (300.0 + 29.0 * c) * tt
-                         + r.uniform(0, 6))
-            sig += (0.5 / nch) * np.exp(
-                1j * (2 * np.pi * f * tt + 0.3 * msg))
-        rf = ComplexArray.from_complex(sig.astype(np.complex64))
-        st_x, st_p = m.init(), mp.init()
-        _, (one, a1) = m._deemph()
-        decay = int(np.ceil(np.log(1e4) / -np.log(min(abs(a1), 0.999))))
-        skip0 = min(n // d - 64, t // d + decay + 64)
-        for blk, skip in ((0, max(skip0, 1)), (1, 0)):
-            part = rf[..., blk * n:(blk + 1) * n]
-            st_x, y_x = m.step(st_x, part)
-            st_p, y_p = mp.step(st_p, part)
-            y_x, y_p = np.asarray(y_x), np.asarray(y_p)
-            assert y_p.shape == (nch, n // d)
-            scale = np.max(np.abs(y_x)) + 1e-9
-            assert np.max(
-                np.abs(y_x[:, skip:] - y_p[:, skip:])) / scale < 3e-3, \
-                (seed, k, d, t, nch, n, blk)
+            channel_frequencies=tuple(-fs / 2 + fs / k * i for i in range(8)),
+            frequency_deviation=75_000.0, decimation=4,
+            low_pass_taps=_lowpass(64, 0.4 / k), impl="pfb")
+        hlo = jax.jit(m.step).lower(
+            m.init(), ComplexArray.zeros((4096,))).as_text()
+        assert "fm_chain" not in hlo and "triton" not in hlo.lower()
 
 
-class TestKernelMath:
-    def test_atan2_poly_accuracy(self):
-        from gsdr_tpu.kernels.kmath import atan2_poly
-        y = RNG.standard_normal(10000).astype(np.float32) * 3
-        x = RNG.standard_normal(10000).astype(np.float32) * 3
-        got = np.asarray(atan2_poly(jnp.asarray(y), jnp.asarray(x)))
-        want = np.arctan2(y, x)
-        assert np.max(np.abs(got - want)) < 3e-6
-
-    def test_atan2_poly_order7_accuracy(self):
-        """The bf16x2 fast grade's 7th-order fit: ~8.2e-5 rad minimax
-        bound (its dot quantization error ~7e-4 dominates)."""
-        from gsdr_tpu.kernels.kmath import atan2_poly
-        y = RNG.standard_normal(10000).astype(np.float32) * 3
-        x = RNG.standard_normal(10000).astype(np.float32) * 3
-        got = np.asarray(atan2_poly(jnp.asarray(y), jnp.asarray(x),
-                                    order=7))
-        want = np.arctan2(y, x)
-        assert np.max(np.abs(got - want)) < 1e-4
-
-    def test_atan2_poly_edges(self):
-        from gsdr_tpu.kernels.kmath import atan2_poly
-        pts = [(0.0, 0.0), (0.0, 1.0), (0.0, -1.0), (1.0, 0.0),
-               (-1.0, 0.0), (1e-30, 1e-30)]
-        for yv, xv in pts:
-            got = float(atan2_poly(jnp.float32(yv), jnp.float32(xv)))
-            want = float(np.arctan2(np.float32(yv), np.float32(xv)))
-            assert abs(got - want) < 3e-6, (yv, xv, got, want)
+@pytest.mark.gpu
+@pytest.mark.parametrize("nch,nt", [(16, 64), (32, 64), (16, 128)])
+def test_kernel_compiles_and_matches_xla_on_gpu(gpu, nch, nt):
+    """The compiled kernel (TF32x3) against the float32 XLA chain at the
+    served-path bar, two carried blocks: the flagship geometry (3 pipeline
+    stages), then shapes that take 2 stages and 1."""
+    m_x, _ = _models(nch=nch, nt=nt)
+    m_k = dc.replace(m_x, impl="auto")
+    assert m_k.uses_kernel()
+    rf = _fm_rf(m_x, 1 << 17)
+    err, st_x, st_k = _stream(m_x, m_k, rf, 2)
+    assert err < 4.2e-5, err
+    _assert_states_close(st_x, st_k, atol=1e-4)
 
 
-class TestFusedAmChain:
-    def test_matches_unfused(self):
-        import dataclasses as dc
-        from gsdr_tpu.pipelines import AmReceiver
-
-        def lowpass(nt, cf):
-            n = np.arange(nt) - (nt - 1) / 2.0
-            h = np.sinc(2 * cf * n) * np.hamming(nt)
-            return tuple((h / h.sum()).astype(np.float32).tolist())
-
-        m = AmReceiver(sample_rate=FS, tuning_frequency=0.0,
-                       channel_frequencies=(120_000.0, -50_000.0),
-                       decimation=4, low_pass_taps=lowpass(64, 0.04))
-        mp = dc.replace(m, impl="pallas")
-        z = 0.3 * (RNG.standard_normal(8192)
-                   + 1j * RNG.standard_normal(8192))
-        rf = ComplexArray.from_complex(z.astype(np.complex64))
-        st1 = m.init()
-        st2 = mp.init()
-        for blk in range(2):
-            part = rf[..., blk * 4096:(blk + 1) * 4096]
-            st1, y1 = m.step(st1, part)
-            st2, y2 = mp.step(st2, part)
-            err = np.max(np.abs(np.asarray(y1) - np.asarray(y2)))
-            assert err < 2e-3, (blk, err)
-        # envelope is magnitude-only, so unlike FM there is no branch-cut
-        # sensitivity and noise input is a fair comparison
-
-    def test_odd_tap_count_fused(self):
-        """Round-4: T % D != 0 runs the fused AM chain (trailing-zero tap
-        pad; the AM chain is stateless past the window so only the
-        envelope needs to match)."""
-        import dataclasses as dc
-        from gsdr_tpu.pipelines import AmReceiver
-
-        def lowpass(nt, cf):
-            n = np.arange(nt) - (nt - 1) / 2.0
-            h = np.sinc(2 * cf * n) * np.hamming(nt)
-            return tuple((h / h.sum()).astype(np.float32).tolist())
-
-        m = AmReceiver(sample_rate=FS, tuning_frequency=0.0,
-                       channel_frequencies=(120_000.0, -50_000.0),
-                       decimation=4, low_pass_taps=lowpass(65, 0.04))
-        mp = dc.replace(m, impl="pallas")
-        z = 0.3 * (RNG.standard_normal(4096)
-                   + 1j * RNG.standard_normal(4096))
-        rf = ComplexArray.from_complex(z.astype(np.complex64))
-        _, y1 = m.step(m.init(), rf)
-        _, y2 = mp.step(mp.init(), rf)
-        assert np.asarray(y1).shape == np.asarray(y2).shape
-        assert np.max(np.abs(np.asarray(y1) - np.asarray(y2))) < 2e-3
-
-    def test_pfb_front_matches_xla(self):
-        """Round-4 AM PFB front (uniform grid): fold + DFT-bank dot +
-        envelope matches the XLA chain; the AM envelope has no branch-cut
-        sensitivity so noise input is fair."""
-        import dataclasses as dc
-        from gsdr_tpu.pipelines import AmReceiver
-
-        fs = 1_024_000.0
-        k = 16
-
-        def lowpass(nt, cf):
-            n = np.arange(nt) - (nt - 1) / 2.0
-            h = np.sinc(2 * cf * n) * np.hamming(nt)
-            return tuple((h / h.sum()).astype(np.float32).tolist())
-
-        for d, t in ((4, 128), (16, 128), (8, 65)):
-            m = AmReceiver(sample_rate=fs, tuning_frequency=0.0,
-                           channel_frequencies=tuple(
-                               -fs / 2 + (fs / k) * i for i in range(10)),
-                           decimation=d, low_pass_taps=lowpass(t, 0.4 / k),
-                           impl="xla")
-            mp = dc.replace(m, impl="pfb_pallas")
-            z = 0.3 * (RNG.standard_normal(8192)
-                       + 1j * RNG.standard_normal(8192))
-            rf = ComplexArray.from_complex(z.astype(np.complex64))
-            st1, st2 = m.init(), mp.init()
-            for blk in range(2):
-                part = rf[..., blk * 4096:(blk + 1) * 4096]
-                st1, y1 = m.step(st1, part)
-                st2, y2 = mp.step(st2, part)
-                err = np.max(np.abs(np.asarray(y1) - np.asarray(y2)))
-                assert err < 2e-3, (d, t, blk, err)
-
-    def test_n_sub_split_parity(self):
-        """The AM kernel's overlap split must be bit-identical to the
-        unsplit kernel (no cross-column state in AM — the sub-blocks
-        compute disjoint columns of the same dots). Sized so bn=256
-        genuinely splits (small shapes demote n_sub to 1 and would test
-        nothing)."""
-        from gsdr_tpu.kernels import fm_chain_pallas as fcp
-        from gsdr_tpu.ops.channelize import make_complex_tap_bank
-
-        t, d = 64, 4
-        n_buf = 131072 + t - 1
-        rng = np.random.default_rng(3)
-        taps = (np.hamming(t) / np.hamming(t).sum())
-        bank = make_complex_tap_bank(taps, [12_345.0], FS)
-        buf = ComplexArray(
-            jnp.asarray(rng.standard_normal(n_buf), jnp.float32),
-            jnp.asarray(rng.standard_normal(n_buf), jnp.float32))
-        outs = {}
-        for ns in (1, 2):
-            plan = fcp.am_chain_plan(bank, d, n_buf, n_sub=ns)
-            assert plan.n_sub == ns, (plan.bn, plan.n_sub)
-            outs[ns] = np.asarray(fcp.am_chain_apply(plan, buf))
-        assert np.array_equal(outs[1], outs[2])
-
-    def test_r_stack_override_parity(self):
-        """Forcing a smaller stacking factor re-associates the window dot
-        but must compute the same envelope."""
-        from gsdr_tpu.kernels import fm_chain_pallas as fcp
-        from gsdr_tpu.ops.channelize import make_complex_tap_bank
-
-        t, d = 64, 4
-        n_buf = 65536 + t - 1
-        rng = np.random.default_rng(4)
-        taps = (np.hamming(t) / np.hamming(t).sum())
-        bank = make_complex_tap_bank(taps, [12_345.0], FS)
-        buf = ComplexArray(
-            jnp.asarray(rng.standard_normal(n_buf), jnp.float32),
-            jnp.asarray(rng.standard_normal(n_buf), jnp.float32))
-        ref = np.asarray(fcp.am_chain_apply(
-            fcp.am_chain_plan(bank, d, n_buf), buf))
-        plan8 = fcp.am_chain_plan(bank, d, n_buf, r_stack=8)
-        assert plan8.r_stack == 8
-        got = np.asarray(fcp.am_chain_apply(plan8, buf))
-        assert np.max(np.abs(ref - got)) < 5e-5
-
-
-class TestFusedAmChainPadding:
-    def test_arbitrary_block_length(self):
-        """AM is stateless past the filter window, so the fused kernel pads
-        M to the stacking grid and slices — any block length works."""
-        import dataclasses as dc
-        from gsdr_tpu.pipelines import AmReceiver
-
-        def lowpass(nt, cf):
-            n = np.arange(nt) - (nt - 1) / 2.0
-            h = np.sinc(2 * cf * n) * np.hamming(nt)
-            return tuple((h / h.sum()).astype(np.float32).tolist())
-
-        m = AmReceiver(sample_rate=FS, tuning_frequency=0.0,
-                       channel_frequencies=(120_000.0,),
-                       decimation=4, low_pass_taps=lowpass(64, 0.04),
-                       impl="xla")
-        mp = dc.replace(m, impl="pallas")
-        z = 0.3 * (RNG.standard_normal(4100)
-                   + 1j * RNG.standard_normal(4100))
-        rf = ComplexArray.from_complex(z.astype(np.complex64))
-        _, y1 = m.step(m.init(), rf)
-        _, y2 = mp.step(mp.init(), rf)
-        assert np.asarray(y2).shape == np.asarray(y1).shape == (1, 1025)
-        assert np.max(np.abs(np.asarray(y1) - np.asarray(y2))) < 2e-3
+@pytest.mark.gpu
+def test_kernel_impl_needs_no_interpreter_on_gpu(gpu):
+    m_x, _ = _models()
+    assert dc.replace(m_x, impl="pallas").uses_kernel()
+    assert backend.gpu_kernels_available()

@@ -48,7 +48,7 @@ def _planar(shape):
 def _fm_rf(freqs_hz, n, fs=1_000_000.0):
     """Real FM carriers for discriminator comparisons: white noise puts
     samples on the atan2 +-pi branch cut where two correct atan2
-    implementations legitimately differ by 2*pi (CLAUDE.md note)."""
+    implementations legitimately differ by 2*pi."""
     t = np.arange(n) / fs
     sig = np.zeros(n, np.complex128)
     for k, f in enumerate(freqs_hz):
@@ -204,10 +204,10 @@ class TestShardedChannelizer:
 
 
 class TestShardedFusedChains:
-    """Round-3: the fused Pallas chains dispatch INSIDE shard_map (the
-    round-2 judge's top finding: the sharded path only reached the ~50x
-    slower XLA chain). interpret mode on the CPU mesh; audio and the
-    full carried-state pytree must match the single-chip fused step."""
+    """The fused kernel dispatches INSIDE shard_map (in the Pallas
+    interpreter on the CPU mesh), and the XLA PFB and AM fronts shard the
+    same way; audio and the full carried-state pytree must match the
+    single-device step."""
 
     def _fm_model(self, nch, impl, nt=32):
         def lp(t, c):
@@ -220,7 +220,8 @@ class TestShardedFusedChains:
             channel_frequencies=tuple(
                 100_000.0 + 37_000.0 * i for i in range(nch)),
             frequency_deviation=75_000.0, decimation=4,
-            low_pass_taps=lp(nt, 0.04), impl=impl)
+            low_pass_taps=lp(nt, 0.04), impl=impl,
+            interpret=impl == "pallas")
 
     @pytest.mark.parametrize("mesh_shape", [(2, 2), (1, 4), (4, 1)])
     def test_fused_fm_matches_single_chip_fused(self, mesh_shape):
@@ -237,10 +238,7 @@ class TestShardedFusedChains:
             st_shard, y_shard = step(st_shard, rf)
         np.testing.assert_allclose(
             np.asarray(y_shard), np.asarray(y_single), rtol=2e-4, atol=2e-5)
-        # carried state: rf tail, disc carry, de-emphasis z, phase offset.
-        # Disc carry / z tolerances are the bf16x3 contraction grade
-        # (~4e-5 relative): channel shards contract a differently-padded
-        # G' so the bf16 summation order differs from the single chip.
+        # carried state: rf tail, disc carry, de-emphasis z, phase offset
         np.testing.assert_allclose(
             st_shard[1].to_numpy(), st_single[1].to_numpy(), atol=1e-6)
         np.testing.assert_allclose(
@@ -250,9 +248,8 @@ class TestShardedFusedChains:
         assert int(st_shard[0]) == int(st_single[0])
 
     def test_pfb_fm_sharded_matches_single_chip(self):
-        """Round-4: the PFB-fronted fused kernel dispatches per shard too
-        (channel shards get their own DFT-bank/rotor table slices; the
-        halo/all-gather plumbing is front-agnostic)."""
+        """The XLA PFB front per shard: channel shards get their own rows
+        of the DFT bank; the halo/all-gather plumbing is front-agnostic."""
         import dataclasses as dc
 
         fs = 1_024_000.0
@@ -262,7 +259,7 @@ class TestShardedFusedChains:
             channel_frequencies=tuple(-fs / 2 + (fs / k) * i
                                       for i in range(8)),
             frequency_deviation=75_000.0, decimation=4,
-            low_pass_taps=_lowpass(64, 0.4 / k), impl="pfb_pallas")
+            low_pass_taps=_lowpass(64, 0.4 / k), impl="pfb")
         mesh = make_mesh(channel=2, time=4)
         step = make_sharded_fm_step(model, mesh)
         rf = _fm_rf(model.channel_frequencies, 4096)
@@ -278,9 +275,9 @@ class TestShardedFusedChains:
             st_shard[2].to_numpy(), st_single[2].to_numpy(), atol=5e-5)
         np.testing.assert_allclose(
             np.asarray(st_shard[3]), np.asarray(st_single[3]), atol=5e-5)
-        # the dense sharded step continues the SAME stream (fronts are
+        # the fused sharded step continues the SAME stream (fronts are
         # state-compatible across the sharded boundary too)
-        m_dense = dc.replace(model, impl="pallas")
+        m_dense = dc.replace(model, impl="pallas", interpret=True)
         step_d = make_sharded_fm_step(m_dense, mesh)
         st_shard, y_mix = step_d(st_shard, rf)
         st_single, y_ref = m_dense.step(st_single, rf)
@@ -288,10 +285,7 @@ class TestShardedFusedChains:
             np.asarray(y_mix), np.asarray(y_ref), rtol=2e-3, atol=2e-4)
 
     def test_fused_fm_odd_taps_sharded(self):
-        """Round-4: T % D != 0 (T=65, D=4) runs fused per shard via the
-        trailing-zero tap pad — the parallel dispatch warning is
-        unreachable for tap-count reasons now (reference accepts any T,
-        include/gsdr/fir.h:30-68)."""
+        """T % D != 0 (T=65, D=4) runs fused per shard."""
         model = self._fm_model(nch=4, impl="pallas", nt=65)
         mesh = make_mesh(channel=2, time=4)
         step = make_sharded_fm_step(model, mesh)
@@ -309,10 +303,7 @@ class TestShardedFusedChains:
 
     def test_fused_fm_interchangeable_with_xla_sharded(self):
         """A stream may switch between the fused and XLA sharded steps
-        mid-flight: the state pytrees are bit-compatible. Uses a real FM
-        signal — white noise puts samples on the atan2 +-pi branch cut
-        where the polynomial and libm atan2 legitimately differ by 2*pi
-        (CLAUDE.md testing note)."""
+        mid-flight: the state pytrees are compatible."""
         mesh = make_mesh(channel=2, time=4)
         m_p = self._fm_model(nch=4, impl="pallas")
         m_x = self._fm_model(nch=4, impl="xla")
@@ -323,36 +314,36 @@ class TestShardedFusedChains:
         st, y1 = step_p(st, rf)     # fused
         st, y2 = step_x(st, rf)     # XLA continues the same stream
         st, y3 = step_p(st, rf)     # fused again
-        # reference: the SAME impl sequence on a single chip (comparing
-        # poly-atan2 steps against libm-atan2 steps would reintroduce the
-        # branch-cut ambiguity this test is not about)
-        st_r = m_p.init()
+        st_r = m_x.init()
         outs = []
-        for m in (m_p, m_x, m_p):
-            st_r, y = m.step(st_r, rf)
+        for _ in range(3):          # reference: XLA on one device
+            st_r, y = m_x.step(st_r, rf)
             outs.append(np.asarray(y))
         for got, want in zip([y1, y2, y3], outs):
             np.testing.assert_allclose(np.asarray(got), want,
-                                       rtol=2e-3, atol=2e-4)
+                                       rtol=2e-4, atol=2e-5)
 
-    def test_fused_am_matches_single_chip(self):
-        model = AmReceiver(
-            sample_rate=1_000_000.0, tuning_frequency=0.0,
-            channel_frequencies=(50_000.0, -120_000.0),
-            decimation=4, low_pass_taps=_lowpass(32, 0.05), impl="pallas")
-        mesh = make_mesh(channel=2, time=4)
-        step = make_sharded_am_step(model, mesh)
-        rf = _planar((4096,))
-        st_single = model.init()
-        st_shard = model.init()
+    @pytest.mark.parametrize("mesh_shape", [(1, 8), (2, 2)])
+    def test_xla_fm_matches_single_chip_on_fm_carriers(self, mesh_shape):
+        """The XLA chain per shard on real FM carriers, at the tight
+        bar: the shards' locally computed previous samples are exact."""
+        c_sh, t_sh = mesh_shape
+        model = self._fm_model(nch=4, impl="xla")
+        mesh = make_mesh(channel=c_sh, time=t_sh,
+                         devices=jax.devices()[:c_sh * t_sh])
+        step = make_sharded_fm_step(model, mesh)
+        rf = _fm_rf(model.channel_frequencies, 8192)
+        st_single, st_shard = model.init(), model.init()
         for _ in range(2):
             st_single, y_single = model.step(st_single, rf)
             st_shard, y_shard = step(st_shard, rf)
         np.testing.assert_allclose(
             np.asarray(y_shard), np.asarray(y_single), rtol=2e-4, atol=2e-5)
+        np.testing.assert_allclose(
+            st_shard[2].to_numpy(), st_single[2].to_numpy(), atol=5e-5)
 
     def test_pfb_am_sharded_matches_single_chip(self):
-        """Round-4: the PFB-fronted fused AM kernel per shard."""
+        """The XLA PFB-fronted AM chain per shard."""
         fs = 1_024_000.0
         k = 16
         model = AmReceiver(
@@ -360,7 +351,7 @@ class TestShardedFusedChains:
             channel_frequencies=tuple(-fs / 2 + (fs / k) * i
                                       for i in range(8)),
             decimation=8, low_pass_taps=_lowpass(64, 0.4 / k),
-            impl="pfb_pallas")
+            impl="pfb")
         mesh = make_mesh(channel=2, time=4)
         step = make_sharded_am_step(model, mesh)
         rf = _planar((4096,))
@@ -370,6 +361,18 @@ class TestShardedFusedChains:
             st_shard, y_shard = step(st_shard, rf)
         np.testing.assert_allclose(
             np.asarray(y_shard), np.asarray(y_single), rtol=2e-4, atol=2e-5)
+
+    @pytest.mark.parametrize("impl", ["pallas", "pfb_pallas"])
+    def test_am_kernel_impls_removed(self, impl):
+        with pytest.raises(ValueError, match="unknown impl"):
+            AmReceiver(sample_rate=1_000_000.0, tuning_frequency=0.0,
+                       channel_frequencies=(50_000.0,), decimation=4,
+                       low_pass_taps=_lowpass(32, 0.05), impl=impl)
+
+    def test_channels_must_split_over_shards(self):
+        model = self._fm_model(nch=3, impl="xla")
+        with pytest.raises(ValueError, match="channel shards"):
+            make_sharded_fm_step(model, make_mesh(channel=2, time=4))
 
 
 class TestShardedModems:
@@ -396,9 +399,8 @@ class TestShardedModems:
         np.testing.assert_array_equal(out, syms)
 
     def test_qpsk_sharded_tx_is_gather_free_and_bit_identical(self):
-        """The sharded tx must use the sign-arithmetic modulator
-        (ops/qpsk.py) — tiny-table gathers lower to per-element dynamic
-        slices on TPU (measured 69x slower, BASELINE.md)."""
+        """The sharded tx uses the sign-arithmetic modulator (ops/qpsk.py):
+        no gather, bit-identical to the single-device op."""
         from gsdr_tpu.ops.qpsk import qpsk_modulate_symbols
         from gsdr_tpu.parallel.modem import make_sharded_qpsk_modem
         from gsdr_tpu.pipelines import QpskModem

@@ -64,13 +64,20 @@ def test_polyphase_decomposition_shape():
 
 
 @pytest.mark.parametrize("k,q", [(16, 8), (8, 4)])
-def test_pallas_matches_xla(k, q):
-    # interpret mode on CPU (conftest forces the CPU backend); HW parity
-    # for the shared stacked kernel is covered by benchmarks/hw_parity.py
+def test_dense_bank_matches_pfb(k, q):
+    """The uniform grid is a complex-tap bank with g_c[t] = h[t]
+    e^{-2i pi ct/K} at decimation K (the rotor is 1 at critical
+    decimation): the dense conv bank must agree with the fold + DFT."""
+    from gsdr_tpu.ops.channelize import (
+        make_complex_tap_bank,
+        mix_fir_decimate_bank,
+    )
+
     taps = _lowpass(k * q, 0.4 / k)
     x = _planar(k * 256 + k * q)
-    want = pfb_channelize(x, taps, k, impl="xla")
-    got = pfb_channelize(x, taps, k, impl="pallas")
+    want = pfb_channelize(x, taps, k)
+    bank = make_complex_tap_bank(taps, [-c for c in range(k)], k)
+    got = mix_fir_decimate_bank(x, bank, k)
     assert got.shape == want.shape
     scale = np.max(np.abs(want.to_numpy()))
     np.testing.assert_allclose(
@@ -141,7 +148,7 @@ class TestUniformGridBank:
         sig = np.zeros(2 * n, np.complex128)
         # a carrier on EVERY channel: silent channels demodulate near-zero
         # filtered samples whose atan2 phase is branch-cut ill-posed
-        # between two correct implementations (CLAUDE.md testing note)
+        # between two correct implementations
         for c in range(k):
             msg = np.sin(2 * np.pi * (500.0 + 37.0 * c) * tt)
             sig += 0.03 * np.exp(
@@ -165,41 +172,21 @@ class TestUniformGridBank:
         np.testing.assert_allclose(np.asarray(st_p[3]), np.asarray(st_x[3]),
                                    atol=1e-6)
 
-    def test_pfb_preferred_rule(self):
-        """The impl='auto' TPU dispatch rule encodes the measured
-        round-4/5 win region: uniform grid, Q = T/K >= 4, P = K/D a
-        power of two <= 8, channel count filling >= half the grid."""
-        from gsdr_tpu.ops.pfb import pfb_preferred
+    @pytest.mark.parametrize("impl", ["pallas", "pfb_pallas"])
+    def test_removed_impl_raises(self, impl):
+        """No kernel serves the PFB: a kernel impl is an error."""
+        taps = _lowpass(64, 0.4 / 16)
+        with pytest.raises(ValueError, match="unknown impl"):
+            pfb_channelize(_planar(16 * 64), taps, 16, impl=impl)
 
-        k = 64
-        grid_shifts = [(1e6 / k) * i for i in range(k)]
-        # wideband critical, Q=8: preferred
-        assert pfb_preferred(grid_shifts, 1e6, 64, 512) is not None
-        # 4x oversampled (P=4): still preferred
-        assert pfb_preferred(grid_shifts, 1e6, 16, 512) is not None
-        # 8x oversampled (P=8): round-5 extension (ns=2 made it win)
-        assert pfb_preferred(grid_shifts, 1e6, 8, 512) is not None
-        # heavy oversampling (P=16): dense wins -> not preferred
-        assert pfb_preferred(grid_shifts, 1e6, 4, 512) is None
-        # short filter (Q=1): dense wins
-        assert pfb_preferred(grid_shifts, 1e6, 64, 64) is None
-        # off-grid spacing (the run_all fm64 config class)
-        off = [-480_000.0 + 15_000.0 * i for i in range(64)]
-        assert pfb_preferred(off, 1e6, 64, 512) is None
-        # UNDER-FILLED grid: 8 channels on even bins lift to K=64 (the
-        # round-4 grid-lift behavior, still tested via uniform_grid
-        # below) but C=8 < K/2 — the per-grid fold/window work only
-        # amortizes over many channels; a 1-channel AM config on a K=20
-        # grid measured 15x slower through the PFB front (round 5), so
-        # auto must stay dense here
-        even = [2 * i * 1e6 / 64 for i in range(8)]
-        assert pfb_preferred(even, 1e6, 64, 512) is None
+    def test_under_filled_grid_lifts_to_decimation(self):
+        """8 channels on even bins of an Fs/64 grid: the minimal K=32 is
+        lifted to a multiple of D=64."""
         from gsdr_tpu.ops.pfb import uniform_grid
+
+        even = [2 * i * 1e6 / 64 for i in range(8)]
         got = uniform_grid(even, 1e6, multiple_of=64)
         assert got is not None and got[0] == 64 and got[1][1] == 2
-        # non-power-of-two P (the AM-1ch K=20/P=5 class): unmeasured
-        # geometry, auto must stay dense
-        assert pfb_preferred([-100_000.0], 1e6, 4, 64) is None
 
     def test_uniform_grid_multiple_of(self):
         from gsdr_tpu.ops.pfb import uniform_grid
@@ -332,8 +319,7 @@ class TestPfbSynthesis:
         (mix_fir_decimate_bank_uniform at D = K/2): basebands bandlimited
         to the channel width round-trip at ~1% EVM — the near-perfect-
         reconstruction regime the critical cascade structurally cannot
-        reach (BASELINE round-5; critical EVM ~0.17-0.26 on wideband
-        content). The analysis output carries the e^{2i pi c jD/K} rotor
+        reach (critical EVM ~0.17-0.26 on wideband content). The analysis output carries the e^{2i pi c jD/K} rotor
         ramp (the models' rotate_bank step), removed here directly."""
         from gsdr_tpu.ops.pfb import (
             mix_fir_decimate_bank_uniform,

@@ -1,8 +1,8 @@
 """Planar (split re/im) path parity with the complex64 path.
 
-The TPU deployment backend supports neither complex64 nor uint8 in compiled
-executables, so the performance path runs planar float32 / int32 throughout
-(gsdr_tpu.carray). These tests pin planar == complex for every op.
+The models, kernels and sharded layer run planar float32 / int32
+throughout (gsdr_tpu.carray). These tests pin planar == complex for every
+op.
 """
 
 import numpy as np
@@ -125,7 +125,7 @@ def test_qpsk256_planar_int32(rng):
 
 
 def test_planar_chain_is_jittable(rng):
-    """The planar FM chain compiles as one jitted program (the TPU contract)."""
+    """The planar FM chain compiles as one jitted program."""
     taps = lowpass_taps(33, 0.05)
 
     @jax.jit

@@ -169,13 +169,18 @@ def test_rect_modulate_fast_path_bit_identical():
     np.testing.assert_allclose(a.to_numpy(), b.to_numpy(), atol=1e-6)
 
 
-class TestPallasDemod:
-    """VMEM-resident NN kernel vs the XLA matmul path (interpret mode)."""
+def _golden_nearest(x, const):
+    """Exhaustive float64 nearest neighbour, ties to the lowest index."""
+    d = np.abs(np.asarray(x)[..., None] - np.asarray(const)[None, :])
+    return np.argmin(d, axis=-1)
+
+
+class TestNearestDemod:
+    """The matmul + argmin demodulator against an exhaustive float64
+    search."""
 
     @pytest.mark.parametrize("ctype", [RECTANGULAR, CIRCULAR])
     def test_bit_identical_on_random(self, ctype):
-        from gsdr_tpu.kernels.qpsk256_pallas import qpsk256_demodulate_pallas
-
         const = qpsk256_constellation(ctype, amplitude=2.0)
         rng = np.random.default_rng(99)
         syms = rng.integers(0, 256, 5000)
@@ -183,76 +188,64 @@ class TestPallasDemod:
             rng.standard_normal(5000) + 1j * rng.standard_normal(5000)
         ).astype(np.complex64)
         x = ComplexArray.from_complex(noisy.astype(np.complex64))
-        want = np.asarray(qpsk256_demodulate(x, const, out_dtype=jnp.int32,
-                                             impl="xla"))
-        got = np.asarray(qpsk256_demodulate_pallas(
-            x, const, out_dtype=jnp.int32, interpret=True))
-        np.testing.assert_array_equal(got, want)
+        got = np.asarray(qpsk256_demodulate(x, const, out_dtype=jnp.int32))
+        np.testing.assert_array_equal(got, _golden_nearest(
+            noisy.astype(np.complex64), const))
 
     def test_boundary_inputs_tie_break(self):
-        from gsdr_tpu.kernels.qpsk256_pallas import qpsk256_demodulate_pallas
-
         const = qpsk256_constellation(CIRCULAR, amplitude=1.0)
         cnp = np.asarray(const)
         # exact midpoints between random point pairs: both are nearest;
-        # the kernel must pick what the XLA argmin picks (lowest index)
+        # the chosen point's distance must be the best distance to f32
+        # rounding
         rng = np.random.default_rng(5)
         i = rng.integers(0, 256, 600)
         j = rng.integers(0, 256, 600)
         mids = ((cnp[i] + cnp[j]) / 2).astype(np.complex64)
         x = ComplexArray.from_complex(mids)
-        want = np.asarray(qpsk256_demodulate(x, const, out_dtype=jnp.int32,
-                                             impl="xla"))
-        got = np.asarray(qpsk256_demodulate_pallas(
-            x, const, out_dtype=jnp.int32, interpret=True))
-        # On an exact Voronoi boundary two points are both nearest; the two
-        # paths' last-ulp score rounding may legitimately differ, so demand
-        # the chosen point's distance matches the best distance to f32
-        # rounding (and bit-equal decisions everywhere else — previous test)
-        d_got = np.abs(mids - cnp[got])
-        d_want = np.abs(mids - cnp[want])
-        np.testing.assert_allclose(d_got, d_want, rtol=2e-5, atol=2e-6)
+        got = np.asarray(qpsk256_demodulate(x, const, out_dtype=jnp.int32))
+        want = _golden_nearest(mids, const)
+        np.testing.assert_allclose(np.abs(mids - cnp[got]),
+                                   np.abs(mids - cnp[want]),
+                                   rtol=2e-5, atol=2e-6)
 
     def test_loopback_exact_all_symbols(self):
-        from gsdr_tpu.kernels.qpsk256_pallas import qpsk256_demodulate_pallas
-
         const = qpsk256_constellation(CIRCULAR, amplitude=1.5)
         syms = np.tile(np.arange(256), 5)
         tx = qpsk256_modulate(jnp.asarray(syms), const)
         x = ComplexArray.from_complex(tx)
-        got = np.asarray(qpsk256_demodulate_pallas(
-            x, const, out_dtype=jnp.int32, interpret=True))
+        got = np.asarray(qpsk256_demodulate(x, const, out_dtype=jnp.int32))
         np.testing.assert_array_equal(got, syms)
 
     def test_batched_shapes(self):
-        from gsdr_tpu.kernels.qpsk256_pallas import qpsk256_demodulate_pallas
-
         const = qpsk256_constellation(RECTANGULAR)
         rng = np.random.default_rng(3)
         syms = rng.integers(0, 256, (4, 333))
         tx = np.asarray(const)[syms]
         x = ComplexArray.from_complex(tx.astype(np.complex64))
-        got = np.asarray(qpsk256_demodulate_pallas(
-            x, const, out_dtype=jnp.int32, interpret=True))
+        got = np.asarray(qpsk256_demodulate(x, const, out_dtype=jnp.int32))
         assert got.shape == (4, 333)
         np.testing.assert_array_equal(got, syms)
 
+    @pytest.mark.parametrize("impl", ["pallas", "triton"])
+    def test_removed_impl_raises(self, impl):
+        const = qpsk256_constellation(RECTANGULAR)
+        x = ComplexArray.zeros((16,))
+        with pytest.raises(ValueError, match="unknown impl"):
+            qpsk256_demodulate(x, const, impl=impl)
 
-def test_modulate_select_bit_identical_to_gather():
-    """The TPU constant-select lookup must return the exact table values
-    (it replaces the gather only as a lowering, never semantically)."""
-    from gsdr_tpu.ops.qpsk256 import _modulate_select, qpsk256_constellation
-    import numpy as np
-    import jax.numpy as jnp
 
+def test_modulate_gather_returns_table_values():
+    """Modulation is the table gather, bit for bit, in both
+    representations."""
     for ctype in (0, 1):
         tab = qpsk256_constellation(ctype, planar=True)
         s = jnp.asarray(np.random.default_rng(5).integers(0, 256, 4096),
                         jnp.int32)
-        re, im = _modulate_select(s, np.asarray(tab.re), np.asarray(tab.im))
-        np.testing.assert_array_equal(np.asarray(re),
+        got = qpsk256_modulate(s, tab)
+        np.testing.assert_array_equal(np.asarray(got.re),
                                       np.asarray(tab.re)[np.asarray(s)])
-        np.testing.assert_array_equal(np.asarray(im),
+        np.testing.assert_array_equal(np.asarray(got.im),
                                       np.asarray(tab.im)[np.asarray(s)])
 
 

@@ -70,7 +70,7 @@ class TestMixerStream:
         assert int(st) == (9_000 + 4096) % 10_000
 
     def test_fractional_shift_exact_across_wrap(self):
-        # Round-5 (VERDICT weak #4): a non-integral shift frequency used to
+        # A non-integral shift frequency used to
         # jump by frac(f) cycles every Fs samples (state wrapped mod
         # round(Fs)). Now the wrap modulus is the EXACT period of
         # frac(f*n/Fs): f=0.5 at Fs=1000 has period 2000 — with the old
@@ -93,7 +93,7 @@ class TestMixerStream:
     def test_unrepresentable_period_warns_at_construction(self):
         # float 0.1 is not 1/10 — the exact f/Fs period exceeds the int32
         # index budget, so construction must warn loudly instead of
-        # silently jumping phase (VERDICT round-4 weak #4).
+        # silently jumping phase.
         with pytest.warns(UserWarning, match="APPROXIMATE"):
             MixerStream(freq_shift_hz=0.1, sample_rate=1000.0)
 

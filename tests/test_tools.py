@@ -131,12 +131,10 @@ def test_throughput_report_structure():
     def step(st, x):
         return st + jnp.sum(x) * 1e-30, x * 2.0
 
-    # strict=False: a 1024-element step at 3 iters sits below dispatch
-    # noise on any backend — this test checks structure, not precision
+    # checks structure, not precision: the CPU gives no device metric
     rep = throughput_report(step, jnp.zeros(()), jnp.ones(1024),
-                            samples_per_step=1024, iters=3, label="x2",
-                            strict=False)
+                            samples_per_step=1024, iters=3, label="x2")
     assert rep["label"] == "x2"
     assert rep["samples_per_second"] > 0
     assert rep["msamples_per_second"] == rep["samples_per_second"] / 1e6
-    assert rep["timing_resolved"] in (True, False)
+    assert rep["device"]["platform"] == "cpu"
